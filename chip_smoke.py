@@ -1,0 +1,430 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port (kmers_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N] [--workdir DIR]
+
+Run from the root of a checkout, on a machine with a CUDA card and nvcc.
+Imports no JAX.  Phases, one line of output each (any failure raises, so
+the exit code is non-zero):
+
+  1. device: the card's name and power limit; build the kernels.
+  2. kernels: each CUDA kernel against its plain PyTorch version on the
+     card at main-path shapes, bit for bit; median times of both.
+  3. end to end: `count` on a seeded E. coli-scale read set (4,641,652 bp
+     genome, 1,000,000 reads of 150 bp), k=31, capacity 2^24, packed
+     ingest; the table must equal an independent torch.unique count of
+     the plain windows, and the run must have launched the window (K1),
+     merge (K3) and compress (K4) kernels.  A shorter --ascii-ingest run
+     must launch K2 and give the packed run's table.
+  4. against the JAX package: the small fixed input's table digest must
+     equal SMOKE_DIGEST (pinned by the tests to kmers_tpu's CPU output);
+     an evicting run exits 3 and matches the port's CPU run; query and
+     stats agree between the card and the CPU.
+
+The last three lines: `nvidia-smi` name and power limit, a JSON object
+of the kernels' launches, errors and times, and
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Exits non-zero without a result when no CUDA device is present.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import io
+import json
+import os
+import subprocess
+import sys
+import time
+
+sys.modules["jax"] = None          # the port must run where JAX is absent
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DEVICE = "cuda"
+# main-path shapes: window batch [B, L], merge sides, compress lanes, and
+# the end-to-end read count (1M reads of 150 bp on a 4.6 Mbp genome)
+SIZES = dict(window=(4096, 256), merge=1 << 24, compress=1 << 25,
+             reads=1_000_000, short_reads=100_000, genome=4_641_652)
+
+KERNEL_INFO = {
+    "pack_canonical_keys_packed": ("kmers_tpu_torch/kernels/csrc/window.cu",
+                                   "kmers_tpu/kernels/window.py:338"),
+    "pack_canonical_keys": ("kmers_tpu_torch/kernels/csrc/window.cu",
+                            "kmers_tpu/kernels/window.py:391"),
+    "merge_sorted": ("kmers_tpu_torch/kernels/csrc/merge.cu",
+                     "kmers_tpu/kernels/merge.py:127"),
+    "compress_flagged": ("kmers_tpu_torch/kernels/csrc/merge.cu",
+                         "kmers_tpu/kernels/merge.py:284"),
+}
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def sync() -> None:
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def time_ms(fn, reps: int = 10) -> float:
+    """Median device time of fn() in ms, by CUDA events, after warm-up.
+
+    A queued torch.cuda._sleep keeps the card busy while the host enqueues
+    the start event and fn's launches, so the events bracket device work
+    and not the host's launch overhead (which for K1 is several times its
+    9 us of device time).  A plain version that syncs inside (nonzero)
+    still pays its host gap: that is its real cost."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def max_abs_err(got, want) -> int:
+    """Largest |difference| over paired int planes (0 = bit for bit)."""
+    import torch
+
+    err = 0
+    for g, w in zip(got, want):
+        if g.shape != w.shape:
+            raise AssertionError(f"shape {tuple(g.shape)} != {tuple(w.shape)}")
+        if g.numel():
+            err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
+                               .abs().max()))
+    return err
+
+
+def seeded_reads(rs, B: int, L: int):
+    """[B, L] ASCII reads with lowercase bases and runs of N."""
+    import numpy as np
+
+    reads = np.frombuffer(b"ACGTacgt", dtype=np.uint8)[
+        rs.randint(0, 8, size=(B, L))].copy()
+    for _ in range(B // 2):
+        b, p = rs.randint(0, B), rs.randint(0, L)
+        reads[b, p:p + rs.randint(1, 40)] = ord("N")
+    return reads
+
+
+def phase_device(stats: dict) -> None:
+    from kmers_tpu_torch.kernels import _build
+
+    stats["smi"] = nvidia_smi()
+    t0 = time.time()
+    info = _build.build()
+    _build.lib()
+    ptxas = [ln.strip() for ln in info["log"].splitlines()
+             if "registers" in ln or "spill" in ln]
+    say(f"phase 1 device: {stats['smi']}; kernels "
+        f"{'built' if info['built'] else 'up to date'} in "
+        f"{time.time() - t0:.1f}s (nvcc {info['seconds']:.1f}s)")
+    for ln in ptxas:
+        say(f"  ptxas: {ln}")
+
+
+def phase_kernels(stats: dict, seed: int) -> None:
+    import numpy as np
+    import torch
+
+    from kmers_tpu_torch.core import u64
+    from kmers_tpu_torch.io import fastx
+    from kmers_tpu_torch.kernels import merge as kmerge
+    from kmers_tpu_torch.kernels import window as kwin
+
+    dev = torch.device(DEVICE)
+    rs = np.random.RandomState(seed)
+    res = stats["kernels"]
+
+    # K1 / K2 at [4096, 256]
+    reads_np = seeded_reads(rs, *SIZES["window"])
+    words_np, vbits_np = fastx.pack_batch_np(reads_np)
+    reads = torch.from_numpy(reads_np).to(dev)
+    words = torch.from_numpy(words_np.view(np.int32)).to(dev)
+    vbits = torch.from_numpy(vbits_np.view(np.int32)).to(dev)
+    e1 = e2 = 0
+    for k in (1, 15, 16, 17, 31):
+        e1 = max(e1, max_abs_err(
+            kwin.pack_canonical_keys_packed(words, vbits, k),
+            kwin.pack_canonical_keys_packed_plain(words, vbits, k)))
+        e2 = max(e2, max_abs_err(kwin.pack_canonical_keys(reads, k),
+                                 kwin.pack_canonical_keys_plain(reads, k)))
+    res["pack_canonical_keys_packed"] = dict(
+        max_abs_err=e1,
+        ms=time_ms(lambda: kwin.pack_canonical_keys_packed(words, vbits, 31)),
+        plain_ms=time_ms(
+            lambda: kwin.pack_canonical_keys_packed_plain(words, vbits, 31)))
+    res["pack_canonical_keys"] = dict(
+        max_abs_err=e2,
+        ms=time_ms(lambda: kwin.pack_canonical_keys(reads, 31)),
+        plain_ms=time_ms(lambda: kwin.pack_canonical_keys_plain(reads, 31)))
+
+    # K3: a 2^24-lane table (3/4 live) with 2^24 sorted unit keys, half of
+    # them drawn from the table's keys, a tenth flagged dead
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = SIZES["merge"]
+    rand_keys = lambda m: torch.randint(0, 1 << 62, (m,), device=dev,
+                                        generator=g)
+    live_keys = torch.unique(rand_keys(3 * n // 4))
+    nl = live_keys.shape[0]
+    a_key = torch.cat([live_keys, torch.full((n - nl,), -1, device=dev,
+                                             dtype=torch.int64)])
+    a_hi, a_lo = u64.split_word(a_key)
+    a_w = torch.where(torch.arange(n, device=dev) < nl,
+                      torch.randint(1, 1000, (n,), device=dev, generator=g,
+                                    dtype=torch.int32), 0)
+    pick = torch.randint(0, nl, (n // 2,), device=dev, generator=g)
+    b_key = torch.cat([live_keys[pick], rand_keys(n - n // 2)])
+    dead = torch.rand(n, device=dev, generator=g) < 0.1
+    b_key = torch.where(dead, u64.SIGN_BIT, b_key)
+    b_key = u64.to_unsigned_order(torch.sort(u64.to_unsigned_order(b_key))
+                                  .values)
+    b_hi, b_lo = u64.split_word(b_key)
+    args3 = (a_hi, a_lo, a_w, b_hi, b_lo)
+    res["merge_sorted"] = dict(
+        max_abs_err=max_abs_err(kmerge.merge_sorted(*args3),
+                                kmerge.merge_sorted_plain(*args3)),
+        ms=time_ms(lambda: kmerge.merge_sorted(*args3)),
+        plain_ms=time_ms(lambda: kmerge.merge_sorted_plain(*args3)))
+
+    # K4 at 2^25 lanes, about half kept
+    n4 = SIZES["compress"]
+    planes = [u64.low32_as_int32(torch.randint(0, 1 << 32, (n4,), device=dev,
+                                               generator=g))
+              for _ in range(3)]
+    keep = (torch.rand(n4, device=dev, generator=g) < 0.5).to(torch.uint8)
+    kept = int(keep.sum())
+    got = kmerge.compress_flagged(*planes, keep)
+    want = kmerge.compress_flagged_plain(*planes, keep)
+    res["compress_flagged"] = dict(
+        max_abs_err=max_abs_err([x[:kept] for x in got],
+                                [x[:kept] for x in want]),
+        ms=time_ms(lambda: kmerge.compress_flagged(*planes, keep)),
+        plain_ms=time_ms(lambda: kmerge.compress_flagged_plain(*planes, keep)))
+
+    for name, r in res.items():
+        if r["max_abs_err"]:
+            raise AssertionError(f"{name}: kernel differs from its plain "
+                                 f"version (max_abs_err {r['max_abs_err']})")
+    say("phase 2 kernels: all four bit-exact vs plain; " + "; ".join(
+        f"{name} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms)"
+        for name, r in res.items()))
+
+
+def run_cli(argv) -> tuple:
+    """(exit code, stdout, stderr) of the port's CLI, in this process."""
+    from kmers_tpu_torch.__main__ import main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def independent_count(fastq: str, k: int, batch: int, length: int):
+    """torch.unique over the plain windows' valid canonical keys."""
+    import numpy as np
+    import torch
+
+    from kmers_tpu_torch.io import fastx
+    from kmers_tpu_torch.ops import kmer
+
+    keys = []
+    for words, vbits in fastx.read_packed_batches(fastq, k=k, batch=batch,
+                                                  length=length):
+        w = torch.from_numpy(words.view(np.int32)).to(DEVICE)
+        v = torch.from_numpy(vbits.view(np.int32)).to(DEVICE)
+        win = kmer.kmer_windows_packed(w, v, k)
+        keys.append(kmer.canonical_word(win.fw, win.rc)[win.valid])
+    return torch.unique(torch.cat(keys), return_counts=True)
+
+
+def phase_end_to_end(stats: dict, seed: int, workdir: str) -> None:
+    import torch
+
+    from kmers_tpu_torch import kernels
+    from kmers_tpu_torch.core import u64
+    from kmers_tpu_torch.io import simulate
+    from kmers_tpu_torch.parallel.stream import StreamingCounter, npz_digest
+
+    sim = dict(genome_len=SIZES["genome"], read_len=150, sub_rate=1e-3,
+               n_rate=1e-4, seed=seed)
+    fastq = os.path.join(workdir, "ecoli_1m.fastq")
+    t0 = time.time()
+    bases = simulate.write_fastq(fastq, n_reads=SIZES["reads"], **sim)
+    t_gen = time.time() - t0
+    out = os.path.join(workdir, "ecoli_1m.npz")
+    count_args = ["-k", "31", "--capacity", "16777216", "--batch", "4096",
+                  "--length", "256", "--device", DEVICE]
+
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    rc, _, err = run_cli(["count", fastq, "-o", out] + count_args)
+    sync()
+    wall = time.time() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        raise AssertionError(f"count exited {rc}:\n{err}")
+    for name in ("pack_canonical_keys_packed", "merge_sorted",
+                 "compress_flagged"):
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was not launched on the main path")
+
+    sc = StreamingCounter.load(out, device=DEVICE)
+    nu = sc.table.n_unique
+    got_keys = u64.join_planes(sc.table.keys_hi[:nu], sc.table.keys_lo[:nu])
+    got_counts = sc.table.counts[:nu].to(torch.int64)
+    want_keys, want_counts = independent_count(fastq, 31, 4096, 256)
+    if not (torch.equal(got_keys, want_keys)
+            and torch.equal(got_counts, want_counts)):
+        raise AssertionError(
+            f"table differs from the independent count: {nu} vs "
+            f"{want_keys.shape[0]} keys")
+    if sc.kmers != int(want_counts.sum()):
+        raise AssertionError(f"kmers {sc.kmers} != {int(want_counts.sum())}")
+
+    # shorter ASCII-ingest run: launches K2, same table as packed
+    small = os.path.join(workdir, "ecoli_100k.fastq")
+    simulate.write_fastq(small, n_reads=SIZES["short_reads"], **sim)
+    p_out = os.path.join(workdir, "ecoli_100k_packed.npz")
+    a_out = os.path.join(workdir, "ecoli_100k_ascii.npz")
+    rc_p, _, err_p = run_cli(["count", small, "-o", p_out] + count_args)
+    kernels.reset_launch_counts()
+    rc_a, _, err_a = run_cli(["count", small, "-o", a_out, "--ascii-ingest"]
+                             + count_args)
+    ascii_launches = kernels.launch_counts()
+    if rc_p or rc_a:
+        raise AssertionError(f"100k runs exited {rc_p}, {rc_a}:\n{err_p}{err_a}")
+    if ascii_launches["pack_canonical_keys"] == 0:
+        raise AssertionError("pack_canonical_keys was not launched by "
+                             "--ascii-ingest")
+    if npz_digest(p_out) != npz_digest(a_out):
+        raise AssertionError("--ascii-ingest table differs from packed")
+    launches["pack_canonical_keys"] = ascii_launches["pack_canonical_keys"]
+    stats["launches"] = launches
+    stats["e2e"] = dict(wall_s=wall, kmers=sc.kmers, distinct=nu,
+                        kmers_per_s=sc.kmers / wall, peak_bytes=peak,
+                        reads=SIZES["reads"], bases=bases, gen_s=t_gen)
+    say(f"phase 3 end to end: {bases} bases, {sc.kmers} kmers, {nu} distinct "
+        f"in {wall:.3f}s = {sc.kmers / wall:.4g} kmers/s, peak device "
+        f"memory {peak / 2**20:.1f} MiB; table == torch.unique count; "
+        f"launches {launches}; --ascii-ingest table == packed")
+
+
+def phase_reference(stats: dict, workdir: str) -> None:
+    from kmers_tpu_torch import smoke
+    from kmers_tpu_torch.parallel.stream import npz_digest
+
+    fastq = smoke.write_smoke_input(os.path.join(workdir, "smoke.fastq"))
+    out = os.path.join(workdir, "smoke_gpu.npz")
+    rc, _, err = run_cli(smoke.smoke_count_args(fastq, out)
+                         + ["--device", DEVICE])
+    if rc != 0 or npz_digest(out) != smoke.SMOKE_DIGEST:
+        raise AssertionError(f"smoke count rc {rc}, digest "
+                             f"{npz_digest(out)} != {smoke.SMOKE_DIGEST}\n{err}")
+
+    evict = {}
+    for device in (DEVICE, "cpu"):
+        path = os.path.join(workdir, f"smoke_evict_{device}.npz")
+        argv = smoke.smoke_count_args(fastq, path) + [
+            "--capacity", "4096", "--merge-every", "2", "--device", device]
+        rc, _, err = run_cli(argv)
+        if rc != 3 or "dropped" not in err:
+            raise AssertionError(f"evicting run on {device}: rc {rc}\n{err}")
+        evict[device] = (npz_digest(path), run_cli(
+            ["stats", path, "--device", device])[1])
+    if evict[DEVICE] != evict["cpu"]:
+        raise AssertionError("evicting run differs between cuda and cpu")
+
+    rc, stats_gpu, _ = run_cli(["stats", out, "--device", DEVICE])
+    _, stats_cpu, _ = run_cli(["stats", out, "--device", "cpu"])
+    queries = _top_and_absent_queries(out)
+    rq, q_gpu, _ = run_cli(["query", out] + queries + ["--device", DEVICE])
+    _, q_cpu, _ = run_cli(["query", out] + queries + ["--device", "cpu"])
+    if rc or rq or stats_gpu != stats_cpu or q_gpu != q_cpu:
+        raise AssertionError(f"stats/query differ:\n{stats_gpu}{stats_cpu}"
+                             f"{q_gpu}{q_cpu}")
+    dropped = [ln for ln in evict[DEVICE][1].splitlines()
+               if ln.startswith("dropped")]
+    say(f"phase 4 reference: smoke digest == SMOKE_DIGEST "
+        f"{smoke.SMOKE_DIGEST[:16]}...; evicting run exit 3 ({dropped[0]}) "
+        f"== cpu; stats and query agree ({q_gpu.strip().splitlines()[0]})")
+
+
+def _top_and_absent_queries(path: str) -> list:
+    """The most frequent k-mer of a saved table as a string, and AAA..A."""
+    import numpy as np
+
+    with np.load(path) as z:
+        nu = int(z["n_unique"])
+        i = int(np.argmax(z["counts"][:nu]))
+        word = (int(z["keys_hi"][i]) << 32) | int(z["keys_lo"][i])
+        k = int(z["k"])
+    top = "".join("ACGT"[(word >> (2 * j)) & 3] for j in range(k))
+    return [top, "A" * k]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--workdir", default=os.path.join(ROOT, "build", "smoke"))
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("error: torch.cuda.is_available() is false: chip_smoke needs "
+              "a CUDA card", file=sys.stderr)
+        return 1
+    import kmers_tpu_torch  # noqa: F401  (fails outside a checkout)
+
+    os.makedirs(args.workdir, exist_ok=True)
+    stats = {"kernels": {}}
+    phase_device(stats)
+    phase_kernels(stats, args.seed)
+    phase_end_to_end(stats, args.seed, args.workdir)
+    phase_reference(stats, args.workdir)
+
+    kernels = []
+    for name, r in stats["kernels"].items():
+        source, replaces = KERNEL_INFO[name]
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces,
+                            launches=stats["launches"][name],
+                            max_abs_err=r["max_abs_err"], ms=r["ms"],
+                            plain_ms=r["plain_ms"]))
+    say(nvidia_smi())
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,12 @@
+"""kmers_tpu_torch: the PyTorch / CUDA port of kmers_tpu for NVIDIA Hopper.
+
+Same layout as ``kmers_tpu`` (core/, ops/, io/, kernels/, parallel/ and
+the CLI in __main__), same keys, tables and checkpoints.  Plain tensor
+code is PyTorch; each Pallas kernel of the ported path is a hand-written
+CUDA kernel under kernels/csrc, built with nvcc on first use.  Imports
+torch and numpy only, never JAX.
+
+Ported so far: the single-device ``count`` path for k <= 31.
+"""
+
+from .parallel import stream  # noqa: F401  (kmers_tpu_torch.stream.npz_digest)

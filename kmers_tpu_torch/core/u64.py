@@ -1,0 +1,91 @@
+"""64-bit k-mer words as ``int64`` tensors, and the uint32 plane layout.
+
+The JAX package carries a word as a pair of uint32 planes because the
+TPU's vector unit is 32-bit.  PyTorch has ``int64`` but few working
+``uint32``/``uint64`` operators, so the port's plain path carries one
+``int64`` per k-mer (``hi << 32 | lo``, base i at bits 2i) and its
+kernels and tables use ``int32`` planes that hold the uint32 bit patterns.
+
+Two traps of the signed word, handled here once:
+
+* ``>>`` on ``int64`` is arithmetic, so every shift is followed by a mask.
+* a folded invalid flag (bit 31 of hi) is bit 63 of the word, the sign
+  bit.  ``to_unsigned_order`` flips it so that a signed compare or
+  ``torch.sort`` orders words as unsigned 64-bit values (flagged lanes
+  last); applying it twice is the identity.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .spec import check_k
+
+SIGN_BIT = -(1 << 63)          # int64 with only bit 63 set
+LOW32 = 0xFFFFFFFF
+
+_SWAP_LADDER = (
+    (2, 0x3333333333333333),
+    (4, 0x0F0F0F0F0F0F0F0F),
+    (8, 0x00FF00FF00FF00FF),
+    (16, 0x0000FFFF0000FFFF),
+)
+
+
+def mask(bits: int) -> int:
+    """Low-`bits` mask as a Python int (bits <= 62 keeps it an int64)."""
+    return (1 << bits) - 1
+
+
+def join_planes(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """int32 planes (uint32 bit patterns) -> int64 words, bit-exact: a
+    reinterpretation of the little-endian (lo, hi) pair, no arithmetic."""
+    if hi.dtype != torch.int32 or lo.dtype != torch.int32:
+        raise TypeError(f"planes must be int32, got {hi.dtype}, {lo.dtype}")
+    return torch.stack([lo, hi], dim=-1).view(torch.int64).squeeze(-1)
+
+
+def split_word(w: torch.Tensor):
+    """int64 words -> contiguous (hi, lo) int32 planes, bit-exact."""
+    if w.dtype != torch.int64:
+        raise TypeError(f"words must be int64, got {w.dtype}")
+    pair = w.contiguous().view(torch.int32).view(*w.shape, 2)
+    return pair[..., 1].contiguous(), pair[..., 0].contiguous()
+
+
+def fold_invalid(words: torch.Tensor, valid: torch.Tensor):
+    """k <= 31 words + validity -> folded (hi, lo) int32 planes: the
+    invalid flag in bit 31 of hi, invalid lanes exactly (0x80000000, 0)."""
+    return split_word(torch.where(valid, words, SIGN_BIT))
+
+
+def to_unsigned_order(w: torch.Tensor) -> torch.Tensor:
+    """Flip bit 63 so signed order equals unsigned order (an involution)."""
+    return w ^ SIGN_BIT
+
+
+def low32_as_int32(x: torch.Tensor) -> torch.Tensor:
+    """The low 32 bits of int64 values as an int32 bit pattern (exact,
+    without relying on how an out-of-range cast rounds)."""
+    return (((x & LOW32) ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+def as_uint32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> their uint32 values as int64."""
+    return x.to(torch.int64) & LOW32
+
+
+def reverse_bases(w: torch.Tensor) -> torch.Tensor:
+    """Full 32-base reversal of a 64-bit word: the reference's 5-step swap
+    ladder (strides 2, 4, 8, 16 and the 32-bit half swap)."""
+    x = w
+    for s, m in _SWAP_LADDER:
+        x = ((x >> s) & m) | ((x & m) << s)
+    return ((x >> 32) & LOW32) | (x << 32)
+
+
+def reverse_complement(w: torch.Tensor, k: int) -> torch.Tensor:
+    """Complement all, reverse, shift down to k bases (naive_impl
+    revcomp).  Result is masked to 2k bits."""
+    check_k(k)
+    return (reverse_bases(~w) >> (64 - 2 * k)) & mask(2 * k)

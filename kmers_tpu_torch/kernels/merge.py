@@ -1,0 +1,98 @@
+"""Consolidation kernels K3 and K4.
+
+Counterparts of ``kmers_tpu/kernels/merge.py``'s ``merge_sorted`` (K3,
+two key planes, without ``with_idx``) and ``compress_flagged`` (K4).  All
+planes are 1-D int32 tensors holding uint32 bit patterns.  CUDA source:
+``csrc/merge.cu``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core import u64
+from . import _build, check_tensor, count_launch, on_cuda
+
+
+def _check_planes(n: int, **planes) -> None:
+    for name, t in planes.items():
+        check_tensor(t, name, torch.int32, (n,))
+
+
+def merge_sorted_plain(a_hi, a_lo, a_w, b_hi, b_lo):
+    """Plain version of K3: one stable sort of A then B by the unsigned
+    key, so equal keys keep A before B and their order within each side."""
+    key = u64.to_unsigned_order(u64.join_planes(torch.cat([a_hi, b_hi]),
+                                                torch.cat([a_lo, b_lo])))
+    b_w = ((b_hi >> 31) & 1) ^ 1
+    order = torch.sort(key, stable=True).indices
+    return (torch.cat([a_hi, b_hi])[order], torch.cat([a_lo, b_lo])[order],
+            torch.cat([a_w, b_w])[order])
+
+
+def merge_sorted(a_hi, a_lo, a_w, b_hi, b_lo):
+    """K3: merge a sorted table A (key_hi, key_lo, weight) with sorted
+    unit keys B (key_hi, key_lo in the folded layout: bit 31 of hi set =
+    dead lane, weight = flag ^ 1) into one (hi, lo, w) of nA + nB lanes.
+
+    Both sides must ascend by unsigned (hi, lo), dead lanes last; equal
+    keys keep A before B."""
+    na, nb = a_hi.shape[0], b_hi.shape[0]
+    _check_planes(na, a_hi=a_hi, a_lo=a_lo, a_w=a_w)
+    _check_planes(nb, b_hi=b_hi, b_lo=b_lo)
+    if not on_cuda(a_hi, a_lo, a_w, b_hi, b_lo):
+        return merge_sorted_plain(a_hi, a_lo, a_w, b_hi, b_lo)
+    n = na + nb
+    device = a_hi.device
+    out = [torch.empty(n, dtype=torch.int32, device=device) for _ in range(3)]
+    with torch.cuda.device(device):
+        lib = _build.lib()
+        tile = lib.kt_merge_tile()
+        part = torch.empty(-(-n // tile) + 1, dtype=torch.int64, device=device)
+        code = lib.kt_merge_sorted(
+            a_hi.data_ptr(), a_lo.data_ptr(), a_w.data_ptr(), na,
+            b_hi.data_ptr(), b_lo.data_ptr(), nb, part.data_ptr(),
+            *(o.data_ptr() for o in out),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "merge_sorted")
+    count_launch("merge_sorted")
+    return tuple(out)
+
+
+def compress_flagged_plain(hi, lo, pay, keep):
+    """Plain version of K4 (lanes past the kept count are zero here)."""
+    idx = keep.nonzero().squeeze(1)
+    out = []
+    for x in (hi, lo, pay):
+        o = torch.zeros_like(x)
+        o[:idx.shape[0]] = x[idx]
+        out.append(o)
+    return tuple(out)
+
+
+def compress_flagged(hi, lo, pay, keep):
+    """K4: stable-compact the lanes with keep != 0 to the front, carrying
+    `pay`: out[j] = (hi, lo, pay) of the j-th kept lane.  keep is uint8;
+    lanes past the kept count are unspecified."""
+    n = hi.shape[0]
+    _check_planes(n, hi=hi, lo=lo, pay=pay)
+    check_tensor(keep, "keep", torch.uint8, (n,))
+    if not on_cuda(hi, lo, pay, keep):
+        return compress_flagged_plain(hi, lo, pay, keep)
+    device = hi.device
+    out = [torch.empty(n, dtype=torch.int32, device=device) for _ in range(3)]
+    with torch.cuda.device(device):
+        lib = _build.lib()
+        stream = torch.cuda.current_stream().cuda_stream
+        block = lib.kt_compress_block()
+        counts = torch.empty(-(-n // block), dtype=torch.int64, device=device)
+        _build.check(lib.kt_compress_block_counts(
+            keep.data_ptr(), n, counts.data_ptr(), stream),
+            "compress_flagged (block counts)")
+        offs = torch.cumsum(counts, 0) - counts
+        code = lib.kt_compress_flagged(
+            hi.data_ptr(), lo.data_ptr(), pay.data_ptr(), keep.data_ptr(),
+            offs.data_ptr(), n, *(o.data_ptr() for o in out), stream)
+    _build.check(code, "compress_flagged")
+    count_launch("compress_flagged")
+    return tuple(out)

@@ -1,0 +1,51 @@
+"""Per-batch counting (counterpart of ``kmers_tpu/parallel/pipeline.py``).
+
+Single device, "unit" aggregation only: a batch becomes the window
+kernel's raw folded canonical keys, one occurrence per valid lane, with
+no per-batch sort (the deferred consolidation sorts every pending lane
+anyway).  The "compact" and "runlength" forms, and the sharded pipelines,
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import torch
+
+from ..kernels import window as kwin
+from .count import UnitTable
+
+
+class CountResult(NamedTuple):
+    table: UnitTable
+    metrics: Dict[str, torch.Tensor]
+
+
+def _count_metrics(n_reads: int, n_win: int,
+                   emitted: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Per-batch counters; tensors stay on the device (no sync)."""
+    return {
+        "reads": n_reads,
+        "kmers_emitted": emitted,
+        "windows_skipped": n_reads * n_win - emitted,
+    }
+
+
+def count_reads(reads: torch.Tensor, k: int) -> CountResult:
+    """[B, L] uint8 ASCII reads -> UnitTable of folded canonical keys
+    (window kernel K2)."""
+    kh, kl = kwin.pack_canonical_keys(reads, k)
+    emitted = (kh >= 0).sum()
+    return CountResult(UnitTable(kh, kl), _count_metrics(
+        reads.shape[0], reads.shape[-1] - k + 1, emitted))
+
+
+def count_reads_packed(words: torch.Tensor, validbits: torch.Tensor,
+                       k: int) -> CountResult:
+    """count_reads over packed ingest ([B, L/16] code words + [B, L/32]
+    validity bitmaps, int32) with window kernel K1."""
+    kh, kl = kwin.pack_canonical_keys_packed(words, validbits, k)
+    emitted = (kh >= 0).sum()
+    return CountResult(UnitTable(kh, kl), _count_metrics(
+        words.shape[0], words.shape[-1] * 16 - k + 1, emitted))

@@ -1,0 +1,265 @@
+"""Streaming k-mer counting over many read batches (counterpart of
+``kmers_tpu/parallel/stream.py``, single device, k <= 31).
+
+  per batch:    unit emission -- the window kernel's folded canonical keys
+                as a count.UnitTable; no per-batch sort.
+  consolidate:  deferred -- unit tables wait in a pending list and merge
+                into the main table every `merge_every` batches (and before
+                any read of the table): one torch.sort of the pending keys,
+                then count.merge_table_with_sorted_units (merge and compress
+                kernels), then _bound_table's eviction if the merged table
+                outgrew capacity.
+
+Eviction policy (the JAX package's): past capacity the LOWEST-count
+entries go first, ties evict the numerically largest keys, and the
+evicted mass is counted in ``dropped_unique`` / ``dropped_kmers``.
+
+``save`` / ``load`` use the JAX package's npz layout, so a checkpoint of
+either package resumes in the other.  ``np.savez`` stamps zip members
+with the current time, so two saves of one table differ byte for byte:
+compare checkpoints with ``npz_digest``.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import convert
+from ..core import u64
+from ..core.spec import KmerSpec, check_k
+from . import count as count_ops
+from . import pipeline
+from .count import CountTable
+
+
+def npz_digest(path: str) -> str:
+    """sha256 over an npz's sorted member names and, for each, the array's
+    dtype, shape and bytes: equal tables give equal digests whatever the
+    zip timestamps."""
+    h = hashlib.sha256()
+    with np.load(path) as z:
+        for name in sorted(z.files):
+            a = np.ascontiguousarray(z[name])
+            h.update(f"{name}\0{a.dtype.str}\0{a.shape}\0".encode())
+            h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _sort_units(pending) -> tuple:
+    """One sort of all pending unit keys, unsigned (flagged lanes last)."""
+    hi = torch.cat([t.keys_hi.reshape(-1) for t in pending])
+    lo = torch.cat([t.keys_lo.reshape(-1) for t in pending])
+    # equal keys are interchangeable (unit weight): no stability needed
+    key = u64.to_unsigned_order(u64.join_planes(hi, lo))
+    return u64.split_word(u64.to_unsigned_order(torch.sort(key).values))
+
+
+def _merge_bounded_streaming(table: CountTable, pending, capacity: int):
+    """Sort the pending keys, merge them into the table, bound it.
+    Returns (table, dropped_unique, dropped_kmers)."""
+    s_hi, s_lo = _sort_units(pending)
+    merged = count_ops.merge_table_with_sorted_units(table, s_hi, s_lo)
+    return _bound_table(merged, capacity)
+
+
+def _bound_table(merged: CountTable, capacity: int):
+    """Bound a compact key-sorted table to `capacity` slots: a slice when
+    it fits, rank eviction (dead last, count descending, key ascending)
+    otherwise.  Returns (table, dropped_unique, dropped_kmers)."""
+    nu = merged.n_unique
+    if nu <= capacity:
+        return CountTable(merged.keys_hi[:capacity], merged.keys_lo[:capacity],
+                          merged.counts[:capacity], nu), 0, 0
+    cnt = merged.counts[:nu]
+    # the live prefix is key-ascending, so a stable sort by count
+    # descending ranks (count desc, key asc); the first `capacity` stay
+    rank = torch.sort(cnt, descending=True, stable=True).indices
+    kept = torch.sort(rank[:capacity]).values      # back to key order
+    dropped_kmers = int(cnt[rank[capacity:]].to(torch.int64).sum())
+    out = CountTable(merged.keys_hi[kept], merged.keys_lo[kept], cnt[kept],
+                     capacity)
+    return out, nu - capacity, dropped_kmers
+
+
+def _to_device(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """numpy (uint32 read as int32 bit patterns) or tensor -> device."""
+    if isinstance(a, torch.Tensor):
+        t = a
+    else:
+        a = np.ascontiguousarray(a)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        t = torch.from_numpy(a)
+    if t.dtype != dtype:
+        raise TypeError(f"batch dtype {t.dtype}, want {dtype}")
+    return t.to(device).contiguous()
+
+
+class StreamingCounter:
+    """Fold read batches into one fixed-capacity canonical k-mer table on
+    `device` (k <= 31; the wide tier and k = 32 are not ported)."""
+
+    def __init__(self, k, capacity: int, merge_every: int = 16, *, device):
+        self.spec = k if isinstance(k, KmerSpec) else KmerSpec(k)
+        check_k(self.spec.k)
+        self.k = self.spec.k
+        self.capacity = capacity
+        self.merge_every = max(1, merge_every)
+        self.device = torch.device(device)
+        self.table = count_ops.empty_table(capacity, self.device)
+        self._pending = []
+        self._pending_kmers = []
+        self.batches = 0
+        self.kmers = 0
+        self.dropped_unique = 0
+        self.dropped_kmers = 0
+
+    def update(self, reads) -> None:
+        """Count one [B, L] uint8 ASCII batch; consolidation is deferred."""
+        res = pipeline.count_reads(
+            _to_device(reads, torch.uint8, self.device), self.k)
+        self._absorb(res)
+
+    def update_packed(self, words, validbits) -> None:
+        """Count one packed batch ([B, L/16] code words + [B, L/32]
+        validity bitmaps, io.fastx.read_packed_batches layout)."""
+        res = pipeline.count_reads_packed(
+            _to_device(words, torch.int32, self.device),
+            _to_device(validbits, torch.int32, self.device), self.k)
+        self._absorb(res)
+
+    def _absorb(self, res) -> None:
+        self._pending.append(res.table)
+        self._pending_kmers.append(res.metrics["kmers_emitted"])
+        self.batches += 1
+        if len(self._pending) >= self.merge_every:
+            self._consolidate()
+
+    def _consolidate(self) -> None:
+        if not self._pending:
+            return
+        pending = list(self._pending)
+        # pad to merge_every with all-dead tables, as the JAX package does
+        # (there to keep one compiled executable)
+        if (len({t.capacity for t in pending}) == 1
+                and len(pending) < self.merge_every):
+            empty = count_ops.empty_like_table(pending[0])
+            pending += [empty] * (self.merge_every - len(pending))
+        new_table, du, dk = _merge_bounded_streaming(
+            self.table, pending, self.capacity)
+        # commit only after the merge completed: a fault raises before any
+        # counter moves, so discard_pending rewinds batches and kmer mass
+        # together
+        kmers_add = int(torch.stack(self._pending_kmers).sum())
+        self.table = new_table
+        self.kmers += kmers_add
+        self._pending_kmers = []
+        self._pending = []
+        self.dropped_unique += du
+        self.dropped_kmers += dk
+
+    def discard_pending(self) -> None:
+        """Roll back unconsolidated batches after a mid-stream failure: the
+        batch counter rewinds with them, so a resume recounts exactly
+        those batches."""
+        self.batches -= len(self._pending)
+        self._pending = []
+        self._pending_kmers = []
+
+    def lookup(self, words: torch.Tensor) -> torch.Tensor:
+        """Counts (int32) of int64 canonical query words."""
+        self._consolidate()
+        return count_ops.lookup(self.table, words.to(self.device))
+
+    def to_pairs(self):
+        """Host-side [(word, count)] of live slots, sorted by word."""
+        self._consolidate()
+        nu = self.table.n_unique
+        keys = u64.join_planes(self.table.keys_hi[:nu],
+                               self.table.keys_lo[:nu]).cpu().tolist()
+        counts = self.table.counts[:nu].cpu().tolist()
+        return list(zip(keys, counts))
+
+    # -- checkpoint / resume --------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Atomic checkpoint in the JAX package's npz layout: a temp file
+        in the same directory, then os.replace, so a crash never leaves a
+        truncated checkpoint."""
+        self._consolidate()
+        t = convert.table_to_numpy(self.table)
+        final = path if path.endswith(".npz") else path + ".npz"
+        tmp = final + ".tmp.npz"
+        np.savez(
+            tmp,
+            counts=t["counts"],
+            n_unique=t["n_unique"],
+            k=np.int64(self.k),
+            capacity=np.int64(self.capacity),
+            batches=np.int64(self.batches),
+            kmers=np.int64(self.kmers),
+            dropped_unique=np.int64(self.dropped_unique),
+            dropped_kmers=np.int64(self.dropped_kmers),
+            keys_hi=t["keys_hi"],
+            keys_lo=t["keys_lo"],
+        )
+        os.replace(tmp, final)
+
+    @staticmethod
+    def load(path: str, *, device) -> "StreamingCounter":
+        with np.load(path if path.endswith(".npz") else path + ".npz") as z:
+            if "keys_hi" not in z.files:
+                raise ValueError(f"{path}: not a k <= 32 checkpoint (the "
+                                 "wide tier is not ported)")
+            sc = StreamingCounter(int(z["k"]), int(z["capacity"]),
+                                  device=device)
+            sc.table = convert.table_from_numpy(
+                z["keys_hi"], z["keys_lo"], z["counts"], z["n_unique"],
+                device)
+            sc.batches = int(z["batches"])
+            sc.kmers = int(z["kmers"])
+            sc.dropped_unique = int(z["dropped_unique"])
+            sc.dropped_kmers = int(z["dropped_kmers"])
+        return sc
+
+
+def auto_merge_every(capacity: int, batch_lanes: int) -> int:
+    """Consolidation cadence balancing the merge's two lane terms
+    (capacity / merge_every against batch_lanes), clamped to [8, 64]."""
+    return max(8, min(64, capacity // max(1, batch_lanes)))
+
+
+def pending_table_lanes(batch: int, length: int) -> int:
+    """Lane count of one pending per-batch table (single device)."""
+    return batch * length
+
+
+def count_fastx(path: str, k: int, capacity: int, *, device,
+                batch: int = 256, length: int = 256, merge_every: int = 0,
+                counter: Optional[StreamingCounter] = None,
+                packed: bool = True,
+                prefetch_depth: int = 512) -> StreamingCounter:
+    """Count every k-mer of a FASTA/FASTQ file on `device`.  Pass
+    `counter` to resume from a checkpoint.  packed=True ships 2-bit words
+    + validity bitmaps (needs length % 32 == 0, else ASCII rows)."""
+    from ..io import fastx
+
+    if merge_every <= 0:
+        merge_every = auto_merge_every(capacity,
+                                       pending_table_lanes(batch, length))
+    sc = counter if counter is not None else StreamingCounter(
+        k, capacity, merge_every=merge_every, device=device)
+    if packed and length % 32 == 0:
+        it = fastx.read_packed_batches(path, k=k, batch=batch, length=length)
+        for words, validbits in fastx.prefetch(it, depth=prefetch_depth):
+            sc.update_packed(words, validbits)
+    else:
+        it = fastx.read_kmer_batches(path, k=k, batch=batch, length=length)
+        for rows in fastx.prefetch(it, depth=prefetch_depth):
+            sc.update(rows)
+    return sc

@@ -1,0 +1,105 @@
+"""The port's CLI (kmers_tpu_torch.__main__, --device cpu) against
+kmers_tpu's on the same seeded FASTQ: same exit codes, same table content
+(by npz_digest: np.savez stamps zip members with the time, so bytes
+differ), same `stats` and `query` output."""
+
+import contextlib
+import io
+
+import numpy as np
+import pytest
+import torch
+
+from kmers_tpu.__main__ import main as jax_main
+from kmers_tpu_torch import smoke
+from kmers_tpu_torch.__main__ import main as port_main
+from kmers_tpu_torch.parallel.stream import npz_digest
+
+
+@pytest.fixture(scope="module")
+def fastq(tmp_path_factory):
+    return smoke.write_smoke_input(
+        str(tmp_path_factory.mktemp("cli") / "smoke.fastq"))
+
+
+def run(main, argv):
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def top_kmer(path):
+    with np.load(path) as z:
+        nu = int(z["n_unique"])
+        i = int(np.argmax(z["counts"][:nu]))
+        word = (int(z["keys_hi"][i]) << 32) | int(z["keys_lo"][i])
+        k = int(z["k"])
+    return "".join("ACGT"[(word >> (2 * j)) & 3] for j in range(k))
+
+
+def test_smoke_digest_is_kmers_tpu_output(fastq, tmp_path):
+    """SMOKE_DIGEST (which chip_smoke.py checks on the card) is what both
+    packages produce on the CPU."""
+    j_out, t_out = str(tmp_path / "j.npz"), str(tmp_path / "t.npz")
+    assert run(jax_main, smoke.smoke_count_args(fastq, j_out))[0] == 0
+    assert run(port_main, smoke.smoke_count_args(fastq, t_out)
+               + ["--device", "cpu"])[0] == 0
+    assert npz_digest(j_out) == smoke.SMOKE_DIGEST
+    assert npz_digest(t_out) == smoke.SMOKE_DIGEST
+
+
+@pytest.mark.parametrize("extra,want_rc", [
+    ([], 0),                                           # packed ingest
+    (["--ascii-ingest"], 0),
+    (["--capacity", "4096", "--merge-every", "2"], 3),  # evicts
+])
+def test_cli_matches_kmers_tpu(fastq, tmp_path, extra, want_rc):
+    j_out, t_out = str(tmp_path / "j.npz"), str(tmp_path / "t.npz")
+    j_rc, _, j_err = run(jax_main, smoke.smoke_count_args(fastq, j_out)
+                         + extra)
+    t_rc, _, t_err = run(port_main, smoke.smoke_count_args(fastq, t_out)
+                         + extra + ["--device", "cpu"])
+    assert j_rc == t_rc == want_rc
+    assert npz_digest(j_out) == npz_digest(t_out)
+    warn = lambda err: [ln for ln in err.splitlines() if "WARNING" in ln]
+    assert warn(j_err) == warn(t_err)
+    assert bool(warn(t_err)) == (want_rc == 3)
+
+    j_stats = run(jax_main, ["stats", j_out])
+    t_stats = run(port_main, ["stats", t_out, "--device", "cpu"])
+    assert j_stats[:2] == t_stats[:2]
+    queries = [top_kmer(t_out), "A" * 31, "acgt" * 7 + "acg", "ACGT"]
+    j_q = run(jax_main, ["query", j_out] + queries)
+    t_q = run(port_main, ["query", t_out] + queries + ["--device", "cpu"])
+    assert j_q[:2] == t_q[:2]
+    assert j_q[0] == 2                  # "ACGT" has the wrong length
+
+
+@pytest.mark.parametrize("argv", [
+    ["--devices", "2"], ["--partition", "minimizer"], ["-k", "32"],
+    ["-k", "40"],
+])
+def test_cli_rejects_unported_options(fastq, tmp_path, argv):
+    args = ["count", fastq, "-o", str(tmp_path / "x.npz"), "-k", "21",
+            "--device", "cpu"] + argv
+    rc, _, err = run(port_main, args)
+    assert rc == 2 and "not ported" in err
+
+
+def test_cli_cuda_device_needs_a_card(fastq, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        run(port_main, ["count", fastq, "-k", "21", "-o",
+                        str(tmp_path / "x.npz")])
+
+
+def test_cli_checkpoint_and_resume(fastq, tmp_path):
+    out = str(tmp_path / "t.npz")
+    args = smoke.smoke_count_args(fastq, out) + ["--device", "cpu"]
+    assert run(port_main, args + ["--checkpoint-every", "3"])[0] == 0
+    whole = npz_digest(out)
+    rc, _, err = run(port_main, args + ["--resume"])
+    assert rc == 0 and "resuming" in err
+    assert npz_digest(out) == whole

@@ -1,0 +1,82 @@
+"""Window kernels K1/K2 of the port against the JAX package's Pallas
+kernels (interpret mode), on the CPU.  The CUDA kernels are compared with
+these plain versions on the card by test_torch_cuda.py."""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from kmers_tpu.io.fastx import pack_batch_np
+from kmers_tpu.kernels import window as jwin
+from kmers_tpu_torch import kernels
+from kmers_tpu_torch.kernels import window as twin
+
+from test_torch_kmer import make_reads
+
+
+def as_u32(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("k", [1, 15, 16, 17, 31])
+def test_pack_canonical_keys_plain_matches_pallas(k):
+    """K2: every lane, invalid lanes exactly (0x80000000, 0)."""
+    reads = make_reads(300 + k, 8, 256)
+    want_hi, want_lo = jwin.pack_canonical_keys(
+        jnp.asarray(reads), k, block_rows=8, interpret=True)
+    hi, lo = twin.pack_canonical_keys_plain(torch.from_numpy(reads), k)
+    np.testing.assert_array_equal(as_u32(hi), np.asarray(want_hi))
+    np.testing.assert_array_equal(as_u32(lo), np.asarray(want_lo))
+
+
+@pytest.mark.parametrize("k,L", [(7, 128), (16, 128), (17, 256), (31, 256)])
+def test_pack_canonical_keys_packed_plain_matches_pallas(k, L):
+    """K1: the TPU kernel emits q-order, the port p-order; lane q of the
+    TPU output is the window at base qspace_positions(L)[q]."""
+    reads = make_reads(400 + k, 8, L)
+    words, vbits = pack_batch_np(reads)
+    want_hi, want_lo = jwin.pack_canonical_keys_packed(
+        jnp.asarray(words), jnp.asarray(vbits), k, block_rows=8,
+        interpret=True)
+    hi, lo = twin.pack_canonical_keys_packed_plain(
+        torch.from_numpy(words.view(np.int32)),
+        torch.from_numpy(vbits.view(np.int32)), k)
+    p_of_q = jwin.qspace_positions(L)
+    np.testing.assert_array_equal(as_u32(hi)[:, p_of_q], np.asarray(want_hi))
+    np.testing.assert_array_equal(as_u32(lo)[:, p_of_q], np.asarray(want_lo))
+
+
+def test_wrappers_take_the_plain_version_on_cpu():
+    reads = make_reads(9, 4, 64)
+    words, vbits = pack_batch_np(reads)
+    w = torch.from_numpy(words.view(np.int32))
+    v = torch.from_numpy(vbits.view(np.int32))
+    r = torch.from_numpy(reads)
+    kernels.reset_launch_counts()
+    for got, want in ((twin.pack_canonical_keys_packed(w, v, 21),
+                       twin.pack_canonical_keys_packed_plain(w, v, 21)),
+                      (twin.pack_canonical_keys(r, 21),
+                       twin.pack_canonical_keys_plain(r, 21))):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # a CPU tensor runs no kernel, so nothing is counted
+    assert set(kernels.launch_counts().values()) == {0}
+    # the packed and ASCII keys are the same lanes
+    assert torch.equal(twin.pack_canonical_keys_packed(w, v, 21)[0],
+                       twin.pack_canonical_keys(r, 21)[0])
+
+
+def test_wrappers_check_their_inputs():
+    reads = torch.from_numpy(make_reads(1, 2, 64))
+    with pytest.raises(TypeError):
+        twin.pack_canonical_keys(reads.to(torch.int32), 5)
+    with pytest.raises(ValueError):
+        twin.pack_canonical_keys(reads, 32)
+    with pytest.raises(ValueError):
+        twin.pack_canonical_keys(reads[:, ::2], 5)
+    w = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        twin.pack_canonical_keys_packed(w, torch.zeros((2, 1), dtype=torch.int32), 5)
+    with pytest.raises(ValueError):
+        twin.pack_canonical_keys_packed(torch.zeros((2, 3), dtype=torch.int32),
+                                        torch.zeros((2, 1), dtype=torch.int32), 5)
