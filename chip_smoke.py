@@ -8,18 +8,26 @@ Imports no JAX.  Phases, one line of output each (any failure raises, so
 the exit code is non-zero):
 
   1. device: the card's name and power limit; build the kernels.
-  2. kernels: each CUDA kernel against its plain PyTorch version on the
-     card at main-path shapes, bit for bit; median times of both.
-  3. end to end: `count` on a seeded E. coli-scale read set (4,641,652 bp
-     genome, 1,000,000 reads of 150 bp), k=31, capacity 2^24, packed
-     ingest; the table must equal an independent torch.unique count of
-     the plain windows, and the run must have launched the window (K1),
-     merge (K3) and compress (K4) kernels.  A shorter --ascii-ingest run
-     must launch K2 and give the packed run's table.
-  4. against the JAX package: the small fixed input's table digest must
-     equal SMOKE_DIGEST (pinned by the tests to kmers_tpu's CPU output);
-     an evicting run exits 3 and matches the port's CPU run; query and
-     stats agree between the card and the CPU.
+  2. kernels: the hash emitters K5 and K8 driven once as bench.py's step
+     (their launch counts), then each CUDA kernel against its plain
+     PyTorch version on the card at main-path shapes, bit for bit; median
+     times of both.
+  3. end to end, k=31: `count` on a seeded E. coli-scale read set
+     (4,641,652 bp genome, 1,000,000 reads of 150 bp), capacity 2^24,
+     packed ingest; the table must equal an independent torch.unique
+     count of the plain windows, and the run must have launched the
+     window (K1), merge (K3) and compress (K4) kernels.  A shorter
+     --ascii-ingest run must launch K2 and give the packed run's table.
+  4. end to end, k=63 (128-bit keys): the same run on the same reads;
+     the table must equal an independent torch.unique(dim=0) count of
+     the plain wide windows, and the run must have launched the wide
+     merge (K6) and K4.  The shorter --ascii-ingest run must launch K7
+     and give the packed run's table.
+  5. against the JAX package, at k=31 and k=63: the small fixed input's
+     table digest must equal SMOKE_DIGEST / SMOKE_DIGEST_WIDE (pinned by
+     the tests to kmers_tpu's CPU output); an evicting run exits 3 and
+     matches the port's CPU run; query and stats agree between the card
+     and the CPU.
 
 The last three lines: `nvidia-smi` name and power limit, a JSON object
 of the kernels' launches, errors and times, and
@@ -42,10 +50,12 @@ sys.modules["jax"] = None          # the port must run where JAX is absent
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
-# main-path shapes: window batch [B, L], merge sides, compress lanes, and
+# main-path shapes: window batch [B, L], the hash emitters' batch
+# (bench.py's and bench_configs.py's), merge sides, compress lanes, and
 # the end-to-end read count (1M reads of 150 bp on a 4.6 Mbp genome)
-SIZES = dict(window=(4096, 256), merge=1 << 24, compress=1 << 25,
-             reads=1_000_000, short_reads=100_000, genome=4_641_652)
+SIZES = dict(window=(4096, 256), hash=(2048, 1024), merge=1 << 24,
+             compress=1 << 25, reads=1_000_000, short_reads=100_000,
+             genome=4_641_652)
 
 KERNEL_INFO = {
     "pack_canonical_keys_packed": ("kmers_tpu_torch/kernels/csrc/window.cu",
@@ -56,6 +66,14 @@ KERNEL_INFO = {
                      "kmers_tpu/kernels/merge.py:127"),
     "compress_flagged": ("kmers_tpu_torch/kernels/csrc/merge.cu",
                          "kmers_tpu/kernels/merge.py:284"),
+    "pack_canonical_hash": ("kmers_tpu_torch/kernels/csrc/window.cu",
+                            "kmers_tpu/kernels/window.py:205"),
+    "merge_sorted_wide": ("kmers_tpu_torch/kernels/csrc/merge.cu",
+                          "kmers_tpu/kernels/merge.py:509"),
+    "pack_canonical_keys_wide": ("kmers_tpu_torch/kernels/csrc/window_wide.cu",
+                                 "kmers_tpu/kernels/window_wide.py:147"),
+    "pack_canonical_hash_wide": ("kmers_tpu_torch/kernels/csrc/window_wide.cu",
+                                 "kmers_tpu/kernels/window_wide.py:178"),
 }
 
 
@@ -224,13 +242,120 @@ def phase_kernels(stats: dict, seed: int) -> None:
         ms=time_ms(lambda: kmerge.compress_flagged(*planes, keep)),
         plain_ms=time_ms(lambda: kmerge.compress_flagged_plain(*planes, keep)))
 
+    kernels_hash(stats, rs)
+    kernels_wide(stats, rs, g)
+
     for name, r in res.items():
         if r["max_abs_err"]:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version (max_abs_err {r['max_abs_err']})")
-    say("phase 2 kernels: all four bit-exact vs plain; " + "; ".join(
+    say(f"phase 2 kernels: all {len(res)} bit-exact vs plain; " + "; ".join(
         f"{name} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms)"
         for name, r in res.items()))
+
+
+def kernels_hash(stats: dict, rs) -> None:
+    """K5 and K8 at bench.py's / bench_configs.py's [2048, 1024]: driven
+    once as the benchmark step (the launch counts reset just before and
+    read just after), then held against their plain versions (K5 at
+    k in {1, 16, 17, 31, 32}, K8 at k in {33, 48, 63, 64}, two seeds, every
+    lane) and timed at k=31 / k=63."""
+    import torch
+
+    from kmers_tpu_torch import kernels
+    from kmers_tpu_torch.kernels import window as kwin
+    from kmers_tpu_torch.kernels import window_wide as kww
+
+    res = stats["kernels"]
+    reads = torch.from_numpy(seeded_reads(rs, *SIZES["hash"])).to(DEVICE)
+    sync()
+    kernels.reset_launch_counts()
+    step5 = kwin.pack_canonical_hash(reads, 31)
+    step8 = kww.pack_canonical_hash_wide(reads, 63)
+    sync()
+    launched = kernels.launch_counts()
+    stats["launches"].update(
+        (name, launched[name])
+        for name in ("pack_canonical_hash", "pack_canonical_hash_wide"))
+    for name, out, n_hash in (("pack_canonical_hash", step5, 4),
+                              ("pack_canonical_hash_wide", step8, 6)):
+        valid = out[-1].bool()
+        if launched[name] != 1 or not valid.any():
+            raise AssertionError(f"{name}: {launched[name]} launches, "
+                                 f"{int(valid.sum())} valid lanes")
+        # a hash over ~2M distinct valid windows has no constant plane
+        for h in out[n_hash - 2:n_hash]:
+            if int(torch.unique(h[valid]).numel()) < 1000:
+                raise AssertionError(f"{name}: degenerate hash plane")
+    seeds = (0, (1 << 40) + 3)
+    res["pack_canonical_hash"] = dict(
+        max_abs_err=max(max_abs_err(kwin.pack_canonical_hash(reads, k, s),
+                                    kwin.pack_canonical_hash_plain(reads, k, s))
+                        for k in (1, 16, 17, 31, 32) for s in seeds),
+        ms=time_ms(lambda: kwin.pack_canonical_hash(reads, 31)),
+        plain_ms=time_ms(lambda: kwin.pack_canonical_hash_plain(reads, 31)))
+    res["pack_canonical_hash_wide"] = dict(
+        max_abs_err=max(
+            max_abs_err(kww.pack_canonical_hash_wide(reads, k, s),
+                        kww.pack_canonical_hash_wide_plain(reads, k, s))
+            for k in (33, 48, 63, 64) for s in seeds),
+        ms=time_ms(lambda: kww.pack_canonical_hash_wide(reads, 63)),
+        plain_ms=time_ms(
+            lambda: kww.pack_canonical_hash_wide_plain(reads, 63)))
+
+
+def kernels_wide(stats: dict, rs, g) -> None:
+    """K7 at the count batch [4096, 256], k in {33, 47, 48, 63}; K6 at
+    2^24 + 2^24 lanes of 128-bit keys."""
+    import torch
+
+    from kmers_tpu_torch.core import u64, u128
+    from kmers_tpu_torch.kernels import merge as kmerge
+    from kmers_tpu_torch.kernels import window_wide as kww
+
+    res = stats["kernels"]
+    dev = torch.device(DEVICE)
+    reads = torch.from_numpy(seeded_reads(rs, *SIZES["window"])).to(dev)
+    res["pack_canonical_keys_wide"] = dict(
+        max_abs_err=max(max_abs_err(kww.pack_canonical_keys_wide(reads, k),
+                                    kww.pack_canonical_keys_wide_plain(reads, k))
+                        for k in (33, 47, 48, 63)),
+        ms=time_ms(lambda: kww.pack_canonical_keys_wide(reads, 63)),
+        plain_ms=time_ms(lambda: kww.pack_canonical_keys_wide_plain(reads, 63)))
+
+    # K6: a 2^24-lane table (3/4 live, k=63 keys: hi below 2^62) with
+    # 2^24 sorted unit keys, half of them drawn from the table's keys, a
+    # tenth flagged dead
+    n = SIZES["merge"]
+    rand = lambda m, top: torch.randint(0, top, (m,), device=dev, generator=g)
+    rand_keys = lambda m: (rand(m, 1 << 62),
+                           (rand(m, 1 << 62) << 2) | rand(m, 4))
+    nl = 3 * n // 4
+    hi, lo = rand_keys(nl)
+    order = u128.argsort(hi, lo)
+    live_hi, live_lo = hi[order], lo[order]
+    pad = torch.full((n - nl,), -1, device=dev, dtype=torch.int64)
+    a_keys = u128.split_planes(torch.cat([live_hi, pad]),
+                               torch.cat([live_lo, pad]))
+    a_w = torch.where(torch.arange(n, device=dev) < nl,
+                      rand(n, 1000).to(torch.int32) + 1, 0)
+    pick = rand(n // 2, nl)
+    r_hi, r_lo = rand_keys(n - n // 2)
+    b_hi = torch.cat([live_hi[pick], r_hi])
+    b_lo = torch.cat([live_lo[pick], r_lo])
+    dead = torch.rand(n, device=dev, generator=g) < 0.1
+    b_hi = torch.where(dead, u64.SIGN_BIT, b_hi)
+    b_lo = torch.where(dead, 0, b_lo)
+    order = u128.argsort(b_hi, b_lo)
+    b_keys = u128.split_planes(b_hi[order], b_lo[order])
+    flat = lambda out: out[0] + (out[1],)
+    res["merge_sorted_wide"] = dict(
+        max_abs_err=max_abs_err(
+            flat(kmerge.merge_sorted_wide(a_keys, a_w, b_keys)),
+            flat(kmerge.merge_sorted_wide_plain(a_keys, a_w, b_keys))),
+        ms=time_ms(lambda: kmerge.merge_sorted_wide(a_keys, a_w, b_keys)),
+        plain_ms=time_ms(
+            lambda: kmerge.merge_sorted_wide_plain(a_keys, a_w, b_keys)))
 
 
 def run_cli(argv) -> tuple:
@@ -244,10 +369,14 @@ def run_cli(argv) -> tuple:
 
 
 def independent_count(fastq: str, k: int, batch: int, length: int):
-    """torch.unique over the plain windows' valid canonical keys."""
+    """torch.unique over the plain windows' valid canonical keys: int64
+    words for k <= 31; for k > 32, unique [n, 2] rows of (hi, lo) with
+    both sign bits flipped, so that the rows' signed order is the keys'
+    unsigned one."""
     import numpy as np
     import torch
 
+    from kmers_tpu_torch.core import u64
     from kmers_tpu_torch.io import fastx
     from kmers_tpu_torch.ops import kmer
 
@@ -256,28 +385,59 @@ def independent_count(fastq: str, k: int, batch: int, length: int):
                                                   length=length):
         w = torch.from_numpy(words.view(np.int32)).to(DEVICE)
         v = torch.from_numpy(vbits.view(np.int32)).to(DEVICE)
-        win = kmer.kmer_windows_packed(w, v, k)
-        keys.append(kmer.canonical_word(win.fw, win.rc)[win.valid])
-    return torch.unique(torch.cat(keys), return_counts=True)
+        if k <= 32:
+            win = kmer.kmer_windows_packed(w, v, k)
+            keys.append(kmer.canonical_word(win.fw, win.rc)[win.valid])
+        else:
+            win = kmer.kmer_windows_packed_wide(w, v, k)
+            hi, lo = kmer.canonical_word_wide(win.fw, win.rc)
+            keys.append(u64.to_unsigned_order(
+                torch.stack([hi[win.valid], lo[win.valid]], 1)))
+    if k <= 32:
+        return torch.unique(torch.cat(keys), return_counts=True)
+    rows, counts = torch.unique(torch.cat(keys), dim=0, return_counts=True)
+    return u64.to_unsigned_order(rows), counts
 
 
-def phase_end_to_end(stats: dict, seed: int, workdir: str) -> None:
+def table_keys(table):
+    """A loaded table's live keys in independent_count's form."""
+    import torch
+
+    from kmers_tpu_torch.core import u64, u128
+
+    live = [p[:table.n_unique] for p in table.keys]
+    if len(live) == 2:
+        return u64.join_planes(*live)
+    return torch.stack(u128.join_planes(*live), 1)
+
+
+def phase_end_to_end(stats: dict, seed: int, workdir: str, k: int) -> None:
+    """`count -k k` on the 1M-read set, and the 100k-read ASCII run."""
     import torch
 
     from kmers_tpu_torch import kernels
-    from kmers_tpu_torch.core import u64
     from kmers_tpu_torch.io import simulate
     from kmers_tpu_torch.parallel.stream import StreamingCounter, npz_digest
 
     sim = dict(genome_len=SIZES["genome"], read_len=150, sub_rate=1e-3,
                n_rate=1e-4, seed=seed)
     fastq = os.path.join(workdir, "ecoli_1m.fastq")
-    t0 = time.time()
-    bases = simulate.write_fastq(fastq, n_reads=SIZES["reads"], **sim)
-    t_gen = time.time() - t0
-    out = os.path.join(workdir, "ecoli_1m.npz")
-    count_args = ["-k", "31", "--capacity", "16777216", "--batch", "4096",
+    small = os.path.join(workdir, "ecoli_100k.fastq")
+    if "bases" not in stats:
+        t0 = time.time()
+        stats["bases"] = simulate.write_fastq(fastq, n_reads=SIZES["reads"],
+                                              **sim)
+        stats["gen_s"] = time.time() - t0
+        simulate.write_fastq(small, n_reads=SIZES["short_reads"], **sim)
+    bases = stats["bases"]
+    out = os.path.join(workdir, f"ecoli_1m_k{k}.npz")
+    count_args = ["-k", str(k), "--capacity", "16777216", "--batch", "4096",
                   "--length", "256", "--device", DEVICE]
+    wide = k > 32
+    window, ascii_window, merge = (
+        ("pack_canonical_keys_packed", "pack_canonical_keys", "merge_sorted")
+        if not wide else
+        (None, "pack_canonical_keys_wide", "merge_sorted_wide"))
 
     sync()
     torch.cuda.reset_peak_memory_stats()
@@ -289,30 +449,29 @@ def phase_end_to_end(stats: dict, seed: int, workdir: str) -> None:
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     if rc != 0:
-        raise AssertionError(f"count exited {rc}:\n{err}")
-    for name in ("pack_canonical_keys_packed", "merge_sorted",
-                 "compress_flagged"):
-        if launches[name] == 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+        raise AssertionError(f"count -k {k} exited {rc}:\n{err}")
+    for name in (window, merge, "compress_flagged"):
+        if name and launches[name] == 0:
+            raise AssertionError(f"{name} was not launched on the k={k} "
+                                 "main path")
 
     sc = StreamingCounter.load(out, device=DEVICE)
     nu = sc.table.n_unique
-    got_keys = u64.join_planes(sc.table.keys_hi[:nu], sc.table.keys_lo[:nu])
+    got_keys = table_keys(sc.table)
     got_counts = sc.table.counts[:nu].to(torch.int64)
-    want_keys, want_counts = independent_count(fastq, 31, 4096, 256)
+    want_keys, want_counts = independent_count(fastq, k, 4096, 256)
     if not (torch.equal(got_keys, want_keys)
             and torch.equal(got_counts, want_counts)):
         raise AssertionError(
-            f"table differs from the independent count: {nu} vs "
+            f"k={k} table differs from the independent count: {nu} vs "
             f"{want_keys.shape[0]} keys")
     if sc.kmers != int(want_counts.sum()):
         raise AssertionError(f"kmers {sc.kmers} != {int(want_counts.sum())}")
 
-    # shorter ASCII-ingest run: launches K2, same table as packed
-    small = os.path.join(workdir, "ecoli_100k.fastq")
-    simulate.write_fastq(small, n_reads=SIZES["short_reads"], **sim)
-    p_out = os.path.join(workdir, "ecoli_100k_packed.npz")
-    a_out = os.path.join(workdir, "ecoli_100k_ascii.npz")
+    # the shorter ASCII-ingest run launches the ASCII window kernel and
+    # gives the packed run's table
+    p_out = os.path.join(workdir, f"ecoli_100k_k{k}_packed.npz")
+    a_out = os.path.join(workdir, f"ecoli_100k_k{k}_ascii.npz")
     rc_p, _, err_p = run_cli(["count", small, "-o", p_out] + count_args)
     kernels.reset_launch_counts()
     rc_a, _, err_a = run_cli(["count", small, "-o", a_out, "--ascii-ingest"]
@@ -320,20 +479,27 @@ def phase_end_to_end(stats: dict, seed: int, workdir: str) -> None:
     ascii_launches = kernels.launch_counts()
     if rc_p or rc_a:
         raise AssertionError(f"100k runs exited {rc_p}, {rc_a}:\n{err_p}{err_a}")
-    if ascii_launches["pack_canonical_keys"] == 0:
-        raise AssertionError("pack_canonical_keys was not launched by "
+    if ascii_launches[ascii_window] == 0:
+        raise AssertionError(f"{ascii_window} was not launched by "
                              "--ascii-ingest")
     if npz_digest(p_out) != npz_digest(a_out):
-        raise AssertionError("--ascii-ingest table differs from packed")
-    launches["pack_canonical_keys"] = ascii_launches["pack_canonical_keys"]
-    stats["launches"] = launches
-    stats["e2e"] = dict(wall_s=wall, kmers=sc.kmers, distinct=nu,
-                        kmers_per_s=sc.kmers / wall, peak_bytes=peak,
-                        reads=SIZES["reads"], bases=bases, gen_s=t_gen)
-    say(f"phase 3 end to end: {bases} bases, {sc.kmers} kmers, {nu} distinct "
-        f"in {wall:.3f}s = {sc.kmers / wall:.4g} kmers/s, peak device "
-        f"memory {peak / 2**20:.1f} MiB; table == torch.unique count; "
-        f"launches {launches}; --ascii-ingest table == packed")
+        raise AssertionError(f"k={k} --ascii-ingest table differs from packed")
+    if wide:
+        stats["launches"].update(merge_sorted_wide=launches[merge])
+    else:
+        stats["launches"].update((n, launches[n]) for n in
+                                 (window, merge, "compress_flagged"))
+    stats["launches"][ascii_window] = ascii_launches[ascii_window]
+    stats[f"e2e_k{k}"] = dict(wall_s=wall, kmers=sc.kmers, distinct=nu,
+                              kmers_per_s=sc.kmers / wall, peak_bytes=peak,
+                              reads=SIZES["reads"], bases=bases,
+                              launches=launches)
+    say(f"phase {4 if wide else 3} end to end k={k}: {bases} bases, "
+        f"{sc.kmers} kmers, {nu} distinct in {wall:.3f}s = "
+        f"{sc.kmers / wall:.4g} kmers/s, peak device memory "
+        f"{peak / 2**20:.1f} MiB; table == torch.unique count; launches "
+        f"{ {n: c for n, c in launches.items() if c} }; --ascii-ingest "
+        f"table == packed ({ascii_window} {ascii_launches[ascii_window]})")
 
 
 def phase_reference(stats: dict, workdir: str) -> None:
@@ -341,49 +507,63 @@ def phase_reference(stats: dict, workdir: str) -> None:
     from kmers_tpu_torch.parallel.stream import npz_digest
 
     fastq = smoke.write_smoke_input(os.path.join(workdir, "smoke.fastq"))
-    out = os.path.join(workdir, "smoke_gpu.npz")
-    rc, _, err = run_cli(smoke.smoke_count_args(fastq, out)
-                         + ["--device", DEVICE])
-    if rc != 0 or npz_digest(out) != smoke.SMOKE_DIGEST:
-        raise AssertionError(f"smoke count rc {rc}, digest "
-                             f"{npz_digest(out)} != {smoke.SMOKE_DIGEST}\n{err}")
+    notes = []
+    for k, digest in ((31, smoke.SMOKE_DIGEST), (63, smoke.SMOKE_DIGEST_WIDE)):
+        out = os.path.join(workdir, f"smoke_k{k}_gpu.npz")
+        rc, _, err = run_cli(smoke.smoke_count_args(fastq, out, k)
+                             + ["--device", DEVICE])
+        if rc != 0 or npz_digest(out) != digest:
+            raise AssertionError(f"k={k} smoke count rc {rc}, digest "
+                                 f"{npz_digest(out)} != {digest}\n{err}")
 
-    evict = {}
-    for device in (DEVICE, "cpu"):
-        path = os.path.join(workdir, f"smoke_evict_{device}.npz")
-        argv = smoke.smoke_count_args(fastq, path) + [
-            "--capacity", "4096", "--merge-every", "2", "--device", device]
-        rc, _, err = run_cli(argv)
-        if rc != 3 or "dropped" not in err:
-            raise AssertionError(f"evicting run on {device}: rc {rc}\n{err}")
-        evict[device] = (npz_digest(path), run_cli(
-            ["stats", path, "--device", device])[1])
-    if evict[DEVICE] != evict["cpu"]:
-        raise AssertionError("evicting run differs between cuda and cpu")
+        evict = {}
+        for device in (DEVICE, "cpu"):
+            path = os.path.join(workdir, f"smoke_k{k}_evict_{device}.npz")
+            argv = smoke.smoke_count_args(fastq, path, k) + [
+                "--capacity", "4096", "--merge-every", "2", "--device", device]
+            rc, _, err = run_cli(argv)
+            if rc != 3 or "dropped" not in err:
+                raise AssertionError(f"k={k} evicting run on {device}: "
+                                     f"rc {rc}\n{err}")
+            evict[device] = (npz_digest(path), run_cli(
+                ["stats", path, "--device", device])[1])
+        if evict[DEVICE] != evict["cpu"]:
+            raise AssertionError(f"k={k} evicting run differs between cuda "
+                                 "and cpu")
 
-    rc, stats_gpu, _ = run_cli(["stats", out, "--device", DEVICE])
-    _, stats_cpu, _ = run_cli(["stats", out, "--device", "cpu"])
-    queries = _top_and_absent_queries(out)
-    rq, q_gpu, _ = run_cli(["query", out] + queries + ["--device", DEVICE])
-    _, q_cpu, _ = run_cli(["query", out] + queries + ["--device", "cpu"])
-    if rc or rq or stats_gpu != stats_cpu or q_gpu != q_cpu:
-        raise AssertionError(f"stats/query differ:\n{stats_gpu}{stats_cpu}"
-                             f"{q_gpu}{q_cpu}")
-    dropped = [ln for ln in evict[DEVICE][1].splitlines()
-               if ln.startswith("dropped")]
-    say(f"phase 4 reference: smoke digest == SMOKE_DIGEST "
-        f"{smoke.SMOKE_DIGEST[:16]}...; evicting run exit 3 ({dropped[0]}) "
-        f"== cpu; stats and query agree ({q_gpu.strip().splitlines()[0]})")
+        rc, stats_gpu, _ = run_cli(["stats", out, "--device", DEVICE])
+        _, stats_cpu, _ = run_cli(["stats", out, "--device", "cpu"])
+        queries = _top_and_absent_queries(out)
+        rq, q_gpu, _ = run_cli(["query", out] + queries + ["--device", DEVICE])
+        _, q_cpu, _ = run_cli(["query", out] + queries + ["--device", "cpu"])
+        if rc or rq or stats_gpu != stats_cpu or q_gpu != q_cpu:
+            raise AssertionError(f"k={k} stats/query differ:\n{stats_gpu}"
+                                 f"{stats_cpu}{q_gpu}{q_cpu}")
+        top_count = int(q_gpu.splitlines()[0].split("\t")[1])
+        if top_count <= 0:
+            raise AssertionError(f"k={k}: the top k-mer counts {top_count}")
+        dropped = [ln for ln in evict[DEVICE][1].splitlines()
+                   if ln.startswith("dropped")]
+        notes.append(f"k={k}: smoke digest == {digest[:16]}...; evicting "
+                     f"run exit 3 ({dropped[0]}) == cpu; stats and query "
+                     f"agree (top k-mer count {top_count})")
+    say("phase 5 reference: " + "; ".join(notes))
 
 
 def _top_and_absent_queries(path: str) -> list:
     """The most frequent k-mer of a saved table as a string, and AAA..A."""
     import numpy as np
 
+    from kmers_tpu_torch import convert
+
     with np.load(path) as z:
         nu = int(z["n_unique"])
         i = int(np.argmax(z["counts"][:nu]))
-        word = (int(z["keys_hi"][i]) << 32) | int(z["keys_lo"][i])
+        names = (convert.WIDE_KEY_NAMES if convert.WIDE_KEY_NAMES[0] in z.files
+                 else convert.KEY_NAMES)
+        word = 0
+        for name in names:
+            word = (word << 32) | int(z[name][i])
         k = int(z["k"])
     top = "".join("ACGT"[(word >> (2 * j)) & 3] for j in range(k))
     return [top, "A" * k]
@@ -404,14 +584,17 @@ def main(argv=None) -> int:
     import kmers_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     os.makedirs(args.workdir, exist_ok=True)
-    stats = {"kernels": {}}
+    stats = {"kernels": {}, "launches": {}}
     phase_device(stats)
     phase_kernels(stats, args.seed)
-    phase_end_to_end(stats, args.seed, args.workdir)
+    phase_end_to_end(stats, args.seed, args.workdir, 31)
+    phase_end_to_end(stats, args.seed, args.workdir, 63)
     phase_reference(stats, args.workdir)
 
     kernels = []
     for name, r in stats["kernels"].items():
+        if not stats["launches"].get(name):
+            raise AssertionError(f"{name} has no launch on its path")
         source, replaces = KERNEL_INFO[name]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces,

@@ -6,7 +6,8 @@ code is PyTorch; each Pallas kernel of the ported path is a hand-written
 CUDA kernel under kernels/csrc, built with nvcc on first use.  Imports
 torch and numpy only, never JAX.
 
-Ported so far: the single-device ``count`` path for k <= 31.
+Ported so far: the single-device ``count`` path for k <= 31 and for
+33 <= k <= 63 (128-bit keys), and the hash emitters.
 """
 
 from .parallel import stream  # noqa: F401  (kmers_tpu_torch.stream.npz_digest)

@@ -8,8 +8,8 @@ Commands (the same as ``python -m kmers_tpu``):
 
 Every command takes --device (default cuda).  A cuda device without a
 card is an error, never a silent fall back to the CPU.  This port counts
-k <= 31 on one device; --devices > 1, --partition minimizer and k >= 32
-exit 2 with an error.
+1 <= k <= 31 and 33 <= k <= 63 (128-bit keys) on one device; --devices
+> 1, --partition minimizer, k = 32 and k = 64 exit 2 with an error.
 """
 
 from __future__ import annotations
@@ -191,10 +191,13 @@ def _cmd_count(args) -> int:
 def _cmd_query(args) -> int:
     import torch
 
-    from .ops.kmer import canonical_from_string
+    from .core import u128
+    from .ops.kmer import canonical_from_string, canonical_from_string_wide
     from .parallel.stream import StreamingCounter
 
     sc = StreamingCounter.load(args.table, device=_device(args.device))
+    canonical = (canonical_from_string_wide if sc.wide
+                 else canonical_from_string)
     words, bad = [], False
     for q in args.kmers:
         if len(q) != sc.k:
@@ -203,7 +206,7 @@ def _cmd_query(args) -> int:
             bad = True
             continue
         try:
-            canon = canonical_from_string(q)
+            canon = canonical(q)
         except ValueError:
             print(f"error: '{q}' contains non-ACGT characters",
                   file=sys.stderr)
@@ -211,7 +214,9 @@ def _cmd_query(args) -> int:
             continue
         words.append((q, canon))
     if words:
-        qa = torch.tensor([w for _, w in words], dtype=torch.int64)
+        ints = [w for _, w in words]
+        qa = (u128.from_ints(ints) if sc.wide
+              else torch.tensor(ints, dtype=torch.int64))
         counts = sc.lookup(qa).cpu().tolist()
         for (q, _), c in zip(words, counts):
             print(f"{q}\t{int(c)}")
@@ -257,7 +262,7 @@ def main(argv=None) -> int:
             "counts are then lower bounds.\n"))
     c.add_argument("input", help="FASTA/FASTQ path")
     c.add_argument("-k", type=int, required=True,
-                   help="k-mer length (1..31 in this port)")
+                   help="k-mer length (1..31 and 33..63 in this port)")
     c.add_argument("-o", "--output", required=True, help="output .npz table")
     c.add_argument("--capacity", type=int, default=1 << 22,
                    help="max distinct kmers the table can hold (default 4M)")

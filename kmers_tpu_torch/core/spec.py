@@ -10,17 +10,27 @@ from __future__ import annotations
 
 import dataclasses
 
-MAX_K = 31
+NARROW_MAX_K = 31      # one 64-bit key with a spare flag bit
+MAX_K = 63             # two 64-bit keys with a spare flag bit
 
 
 def check_k(k: int) -> None:
-    """Raise ValueError unless the port counts this k (1 <= k <= 31):
-    bit 31 of hi must be spare for the folded invalid flag, and int64
-    words must keep their sign bit clear."""
-    if not 1 <= k <= MAX_K:
+    """Raise ValueError unless the port counts this k: 1 <= k <= 31 (one
+    64-bit key) or 33 <= k <= 63 (a 128-bit key).  Counting folds the
+    invalid flag into the key's top bit, which k = 32 and k = 64 fill."""
+    if not (1 <= k <= NARROW_MAX_K or NARROW_MAX_K + 2 <= k <= MAX_K):
         raise ValueError(
-            f"k={k} is not ported: this port counts 1 <= k <= {MAX_K} "
-            "(k = 32 needs the run-length path, k > 32 the wide tier)")
+            f"k={k} is not ported: this port counts 1 <= k <= {NARROW_MAX_K} "
+            f"and {NARROW_MAX_K + 2} <= k <= {MAX_K} (k = 32 and k = 64 "
+            "need the run-length path)")
+
+
+def check_k_range(k: int, lo: int, hi: int, what: str) -> None:
+    """Raise ValueError unless lo <= k <= hi: the range a function's word
+    layout holds (e.g. 1..32 for one 64-bit word, 33..63 for a folded
+    128-bit key)."""
+    if not lo <= k <= hi:
+        raise ValueError(f"{what} takes {lo} <= k <= {hi}, got k={k}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,7 +38,7 @@ class KmerSpec:
     """k-mer configuration.
 
     Attributes:
-      k: k-mer length in bases (1..64; this port counts k <= 31).
+      k: k-mer length in bases (1..64; this port counts k != 32, 64).
       w: minimizer width (None if minimizers are unused).
       seed: seed of the mixer hash (routing / minimizer order).
     """

@@ -19,10 +19,11 @@ from __future__ import annotations
 
 import torch
 
-from .spec import check_k
+from .spec import check_k_range
 
 SIGN_BIT = -(1 << 63)          # int64 with only bit 63 set
 LOW32 = 0xFFFFFFFF
+MASK64 = (1 << 64) - 1
 
 _SWAP_LADDER = (
     (2, 0x3333333333333333),
@@ -33,8 +34,23 @@ _SWAP_LADDER = (
 
 
 def mask(bits: int) -> int:
-    """Low-`bits` mask as a Python int (bits <= 62 keeps it an int64)."""
-    return (1 << bits) - 1
+    """Low-`bits` mask as an int64 value: all ones (-1) for 64 bits."""
+    return (1 << bits) - 1 if bits < 64 else -1
+
+
+def shr(w: torch.Tensor, n: int) -> torch.Tensor:
+    """Logical right shift of int64 words by a static 0 <= n <= 64."""
+    if n == 0:
+        return w
+    if n >= 64:
+        return torch.zeros_like(w)
+    return (w >> n) & mask(64 - n)
+
+
+def shl(w: torch.Tensor, n: int) -> torch.Tensor:
+    """Left shift of int64 words by a static 0 <= n <= 64 (bits past 63
+    drop out)."""
+    return w << n if n < 64 else torch.zeros_like(w)
 
 
 def join_planes(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
@@ -86,6 +102,40 @@ def reverse_bases(w: torch.Tensor) -> torch.Tensor:
 
 def reverse_complement(w: torch.Tensor, k: int) -> torch.Tensor:
     """Complement all, reverse, shift down to k bases (naive_impl
-    revcomp).  Result is masked to 2k bits."""
-    check_k(k)
-    return (reverse_bases(~w) >> (64 - 2 * k)) & mask(2 * k)
+    revcomp), 1 <= k <= 32.  Result is masked to 2k bits."""
+    check_k_range(k, 1, 32, "u64.reverse_complement")
+    return shr(reverse_bases(~w), 64 - 2 * k)
+
+
+def unsigned_min(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise minimum of int64 words as unsigned 64-bit values."""
+    return to_unsigned_order(torch.minimum(to_unsigned_order(a),
+                                           to_unsigned_order(b)))
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for uint32 values x held in int64, in two 16-bit
+    halves of c so that no product leaves int64."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & LOW32
+
+
+def mix32(x: torch.Tensor) -> torch.Tensor:
+    """The 32-bit avalanche ('lowbias32') of kmers_tpu.core.u64._mix32 on
+    uint32 values held in int64."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def mix_hash(w: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """Seedable 64-bit mixer of int64 words, bit-identical to
+    kmers_tpu.core.u64.mix_hash (two mix32 rounds on each half)."""
+    hi, lo = shr(w, 32), w & LOW32
+    s_lo, s_hi = seed & LOW32, (seed >> 32) & LOW32
+    out_lo = mix32(lo ^ mix32(hi ^ s_lo))
+    out_hi = mix32(hi ^ mix32(lo ^ s_hi ^ 0x9E3779B9))
+    return (out_hi << 32) | out_lo

@@ -13,7 +13,9 @@ from __future__ import annotations
 import torch
 
 KERNELS = ("pack_canonical_keys_packed", "pack_canonical_keys",
-           "merge_sorted", "compress_flagged")
+           "merge_sorted", "compress_flagged", "pack_canonical_hash",
+           "merge_sorted_wide", "pack_canonical_keys_wide",
+           "pack_canonical_hash_wide")
 
 _launches = dict.fromkeys(KERNELS, 0)
 

@@ -1,10 +1,13 @@
 """Build and bind the port's CUDA kernels.
 
-All ``kernels/csrc/*.cu`` sources compile with nvcc, for Hopper only, into
-one shared library with a plain C interface:
+Each ``kernels/csrc/*.cu`` source compiles with its own nvcc, all at
+once, for Hopper only, and the objects link into one shared library with
+a plain C interface:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
-         -Xcompiler -fPIC -o build/kernels/libkmers_tpu_torch_kernels.so ...
+    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17
+         -Xcompiler -fPIC -Xptxas -v -c -o build/kernels/<name>.o <name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o build/kernels/libkmers_tpu_torch_kernels.so build/kernels/*.o
 
 The library lands in ``build/kernels/`` at the root of the checkout on
 first use and is rebuilt when the sha256 of the sources changes.  It is
@@ -29,22 +32,29 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.abspath(os.path.join(CSRC, "..", "..", "..", "build",
                                          "kernels"))
 LIB_NAME = "libkmers_tpu_torch_kernels.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_ULL = ctypes.c_ulonglong
 # name -> (argtypes, restype)
 _SIGNATURES = {
     "kt_pack_keys_packed": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     "kt_pack_keys_ascii": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    "kt_pack_hash_ascii": ([_P] * 6 + [_I, _I, _I, _ULL, _P], _I),
+    "kt_pack_keys_wide": ([_P] * 5 + [_I, _I, _I, _P], _I),
+    "kt_pack_hash_wide": ([_P] * 8 + [_I, _I, _I, _ULL, _P], _I),
     "kt_merge_sorted": ([_P, _P, _P, _LL, _P, _P, _LL, _P, _P, _P, _P, _P],
                         _I),
+    "kt_merge_sorted_wide": ([_P] * 5 + [_LL] + [_P] * 4 + [_LL]
+                             + [_P] * 7, _I),
     "kt_compress_block_counts": ([_P, _LL, _P, _P], _I),
     "kt_compress_flagged": ([_P, _P, _P, _P, _P, _LL, _P, _P, _P, _P], _I),
     "kt_merge_tile": ([], _I),
+    "kt_merge_tile_wide": ([], _I),
     "kt_compress_block": ([], _I),
     "kt_error_string": ([_I], ctypes.c_char_p),
 }
@@ -93,14 +103,35 @@ def build() -> dict:
                 return {"path": lib_path, "built": False, "seconds": 0.0,
                         "log": log}
     tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = ([_nvcc()] + NVCC_FLAGS + ["-o", tmp]
-           + [p for p in sources() if p.endswith(".cu")])
+    nvcc = _nvcc()
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all started together, then one link
+    jobs = []
+    for src in (p for p in sources() if p.endswith(".cu")):
+        obj = os.path.join(BUILD_DIR, os.path.basename(src)[:-3]
+                           + f".{os.getpid()}.o")
+        jobs.append((obj, subprocess.Popen(
+            [nvcc] + NVCC_FLAGS + ["-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log = ""
+    failed = []
+    for obj, proc in jobs:
+        log += proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(obj)
+    if not failed:
+        link = subprocess.run(
+            [nvcc] + ARCH_FLAGS + ["-shared", "-o", tmp]
+            + [obj for obj, _ in jobs], capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed.append(tmp)
+    for obj, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
     seconds = time.time() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
     os.replace(tmp, lib_path)
     with open(stamp, "w") as f:
         f.write(want)

@@ -1,27 +1,31 @@
 // Consolidation kernels: the streaming merge of the count table with the
 // sorted pending keys, and the stable compaction of run starts.
 //
-// Replaces two Pallas functions of kmers_tpu/kernels/merge.py:
-//   K3 merge_sorted      (_merge_sorted_impl at nk=2, _merge_kernel_n,
-//                         _merge_path_search_n, _bitonic_merge_n)
-//   K4 compress_flagged  (_compress_kernel)
+// Replaces three Pallas functions of kmers_tpu/kernels/merge.py:
+//   K3 merge_sorted       (_merge_sorted_impl at nk=2, _merge_kernel_n,
+//                          _merge_path_search_n, _bitonic_merge_n)
+//   K6 merge_sorted_wide  (the same at nk=4: 128-bit keys)
+//   K4 compress_flagged   (_compress_kernel)
 //
-// Both are bound by device-memory bytes: K3 moves 20 B in and 12 B out
-// per output lane and K4 some 13 B in and up to 12 B out, against a
-// handful of compares each.  The design moves each byte once, in
-// coalesced lines:
+// All are bound by device-memory bytes: K3 moves 20 B in and 12 B out
+// per output lane (K6 36 B and 20 B) and K4 some 13 B in and up to 12 B
+// out, against a handful of compares each.  The design moves each byte
+// once, in coalesced lines:
 //
-// K3 merge path (Green et al.).  A small kernel splits the output into
-// MERGE_TILE-lane ranges by binary search on the diagonals; a block then
-// loads its A and B windows (together exactly its output range) into
-// shared memory with coalesced reads, each thread finds its own
-// MERGE_ITEMS-lane sub-range by a second search in shared memory and
-// merges it sequentially, and the block writes its tile back through
-// shared memory, again coalesced.  The TPU kernel sorted a 2*tile bitonic
-// window per grid step because Mosaic has no data-dependent indexing;
-// here each thread simply walks both windows.  Order: unsigned (hi, lo),
-// A before B on equal keys.  B weight = (hi >> 31) ^ 1.  The output is
-// exactly nA + nB lanes long (no pad lanes).
+// K3/K6 merge path (Green et al.), one template on the key plane count
+// NK.  A small kernel splits the output into tile-lane ranges by binary
+// search on the diagonals; a block then loads its A and B windows
+// (together exactly its output range) into shared memory with coalesced
+// reads, each thread finds its own sub-range of ITEMS lanes by a second
+// search in shared memory and merges it sequentially, and the block
+// writes its tile back through shared memory, again coalesced.  Shared
+// memory holds 2 NK + 1 planes of a tile: 2048 lanes (40 KB) for NK = 2,
+// 1024 lanes (36 KB) for NK = 4, both under the 48 KB static limit.  The
+// TPU kernel sorted a 2*tile bitonic window per grid step because Mosaic
+// has no data-dependent indexing; here each thread simply walks both
+// windows.  Order: unsigned over the planes, most significant first, A
+// before B on equal keys.  B weight = (plane 0 >> 31) ^ 1.  The output
+// is exactly nA + nB lanes long (no pad lanes).
 //
 // K4 compaction.  A first kernel counts the kept lanes of each
 // COMPRESS_THREADS-lane block (__syncthreads_count); the wrapper takes an
@@ -35,9 +39,42 @@
 #include "common.cuh"
 
 #define MERGE_THREADS 256
-#define MERGE_ITEMS 8
-#define MERGE_TILE (MERGE_THREADS * MERGE_ITEMS)
 #define COMPRESS_THREADS 1024
+
+// Lanes per thread of the NK-plane merge; tile = MERGE_THREADS * ITEMS.
+template <int NK> struct MergeItems;
+template <> struct MergeItems<2> { static constexpr int value = 8; };
+template <> struct MergeItems<4> { static constexpr int value = 4; };
+
+template <int NK>
+__host__ __device__ constexpr int kt_tile() {
+  return MERGE_THREADS * MergeItems<NK>::value;
+}
+
+// A key of NK uint32 planes as NK/2 64-bit words, most significant first.
+template <int NK> struct Key { u64 w[NK / 2]; };
+
+template <int NK>
+__device__ __forceinline__ bool operator<=(const Key<NK>& a,
+                                           const Key<NK>& b) {
+#pragma unroll
+  for (int j = 0; j + 1 < NK / 2; ++j)
+    if (a.w[j] != b.w[j]) return a.w[j] < b.w[j];
+  return a.w[NK / 2 - 1] <= b.w[NK / 2 - 1];
+}
+
+template <int N> struct InPlanes { const u32* p[N]; };
+template <int N> struct OutPlanes { u32* p[N]; };
+
+// The key of lane i of NK planes (global or shared memory alike).
+template <int NK, typename Planes>
+__device__ __forceinline__ Key<NK> kt_key(const Planes& s, long long i) {
+  Key<NK> key;
+#pragma unroll
+  for (int j = 0; j < NK / 2; ++j)
+    key.w[j] = kt_word(s[2 * j][i], s[2 * j + 1][i]);
+  return key;
+}
 
 // Number of A lanes among the first d lanes of the merged output: the
 // largest a with A[a-1] <= B[d-a] (A-first ties), a in
@@ -56,89 +93,104 @@ __device__ __forceinline__ long long kt_merge_path(KeyA ka, long long na,
   return lo;
 }
 
-__global__ void kt_merge_partition_kernel(const u32* __restrict__ a_hi,
-                                          const u32* __restrict__ a_lo,
-                                          long long na,
-                                          const u32* __restrict__ b_hi,
-                                          const u32* __restrict__ b_lo,
-                                          long long nb, long long* part,
+template <int NK>
+__global__ void kt_merge_partition_kernel(InPlanes<NK> a, long long na,
+                                          InPlanes<NK> b, long long nb,
+                                          long long* part,
                                           long long n_parts) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n_parts) return;
   const long long n = na + nb;
-  long long d = t * MERGE_TILE;
+  long long d = t * kt_tile<NK>();
   if (d > n) d = n;
-  part[t] = kt_merge_path([&](long long i) { return kt_word(a_hi[i], a_lo[i]); }, na,
-                          [&](long long i) { return kt_word(b_hi[i], b_lo[i]); }, nb,
+  part[t] = kt_merge_path([&](long long i) { return kt_key<NK>(a.p, i); }, na,
+                          [&](long long i) { return kt_key<NK>(b.p, i); }, nb,
                           d);
 }
 
+// a: NK key planes + the weight; b: NK key planes; o: NK planes + weight.
+template <int NK>
 __global__ void __launch_bounds__(MERGE_THREADS)
-kt_merge_kernel(const u32* __restrict__ a_hi, const u32* __restrict__ a_lo,
-                const u32* __restrict__ a_w, long long na,
-                const u32* __restrict__ b_hi, const u32* __restrict__ b_lo,
+kt_merge_kernel(InPlanes<NK + 1> a, long long na, InPlanes<NK> b,
                 long long nb, const long long* __restrict__ part,
-                u32* __restrict__ o_hi, u32* __restrict__ o_lo,
-                u32* __restrict__ o_w) {
-  __shared__ u32 sa_hi[MERGE_TILE], sa_lo[MERGE_TILE], sa_w[MERGE_TILE];
-  __shared__ u32 sb_hi[MERGE_TILE], sb_lo[MERGE_TILE];
+                OutPlanes<NK + 1> o) {
+  constexpr int ITEMS = MergeItems<NK>::value;
+  constexpr int TILE = kt_tile<NK>();
+  __shared__ u32 sa[NK + 1][TILE];
+  __shared__ u32 sb[NK][TILE];
   const long long n = na + nb;
-  const long long d0 = (long long)blockIdx.x * MERGE_TILE;
-  const long long d1 = d0 + MERGE_TILE < n ? d0 + MERGE_TILE : n;
+  const long long d0 = (long long)blockIdx.x * TILE;
+  const long long d1 = d0 + TILE < n ? d0 + TILE : n;
   const long long a0 = part[blockIdx.x], a1 = part[blockIdx.x + 1];
   const long long b0 = d0 - a0;
   const int wa = (int)(a1 - a0), wb = (int)((d1 - a1) - b0);
   for (int i = threadIdx.x; i < wa; i += MERGE_THREADS) {
-    sa_hi[i] = a_hi[a0 + i];
-    sa_lo[i] = a_lo[a0 + i];
-    sa_w[i] = a_w[a0 + i];
+#pragma unroll
+    for (int j = 0; j <= NK; ++j) sa[j][i] = a.p[j][a0 + i];
   }
   for (int i = threadIdx.x; i < wb; i += MERGE_THREADS) {
-    sb_hi[i] = b_hi[b0 + i];
-    sb_lo[i] = b_lo[b0 + i];
+#pragma unroll
+    for (int j = 0; j < NK; ++j) sb[j][i] = b.p[j][b0 + i];
   }
   __syncthreads();
 
   const int total = wa + wb;
-  int di = threadIdx.x * MERGE_ITEMS;
+  int di = threadIdx.x * ITEMS;
   if (di > total) di = total;
-  int ai = (int)kt_merge_path(
-      [&](long long i) { return kt_word(sa_hi[i], sa_lo[i]); }, wa,
-      [&](long long i) { return kt_word(sb_hi[i], sb_lo[i]); }, wb, di);
+  int ai = (int)kt_merge_path([&](long long i) { return kt_key<NK>(sa, i); },
+                              wa,
+                              [&](long long i) { return kt_key<NK>(sb, i); },
+                              wb, di);
   int bi = di - ai;
-  u32 r_hi[MERGE_ITEMS], r_lo[MERGE_ITEMS], r_w[MERGE_ITEMS];
+  u32 r[NK + 1][ITEMS];
 #pragma unroll
-  for (int j = 0; j < MERGE_ITEMS; ++j) {
-    if (di + j >= total) break;
+  for (int it = 0; it < ITEMS; ++it) {
+    if (di + it >= total) break;
     const bool take_a =
-        bi >= wb || (ai < wa && kt_word(sa_hi[ai], sa_lo[ai]) <=
-                                    kt_word(sb_hi[bi], sb_lo[bi]));
+        bi >= wb || (ai < wa && kt_key<NK>(sa, ai) <= kt_key<NK>(sb, bi));
     if (take_a) {
-      r_hi[j] = sa_hi[ai];
-      r_lo[j] = sa_lo[ai];
-      r_w[j] = sa_w[ai];
+#pragma unroll
+      for (int j = 0; j <= NK; ++j) r[j][it] = sa[j][ai];
       ++ai;
     } else {
-      r_hi[j] = sb_hi[bi];
-      r_lo[j] = sb_lo[bi];
-      r_w[j] = (sb_hi[bi] >> 31) ^ 1u;
+#pragma unroll
+      for (int j = 0; j < NK; ++j) r[j][it] = sb[j][bi];
+      r[NK][it] = (sb[0][bi] >> 31) ^ 1u;
       ++bi;
     }
   }
   __syncthreads();  // every thread is done reading the windows
 #pragma unroll
-  for (int j = 0; j < MERGE_ITEMS; ++j) {
-    if (di + j >= total) break;
-    sa_hi[di + j] = r_hi[j];
-    sa_lo[di + j] = r_lo[j];
-    sa_w[di + j] = r_w[j];
+  for (int it = 0; it < ITEMS; ++it) {
+    if (di + it >= total) break;
+#pragma unroll
+    for (int j = 0; j <= NK; ++j) sa[j][di + it] = r[j][it];
   }
   __syncthreads();
   for (int i = threadIdx.x; i < total; i += MERGE_THREADS) {
-    o_hi[d0 + i] = sa_hi[i];
-    o_lo[d0 + i] = sa_lo[i];
-    o_w[d0 + i] = sa_w[i];
+#pragma unroll
+    for (int j = 0; j <= NK; ++j) o.p[j][d0 + i] = sa[j][i];
   }
+}
+
+// part: scratch of ceil((nA + nB) / tile) + 1 int64 lanes.
+template <int NK>
+static int kt_merge_launch(InPlanes<NK + 1> a, long long na, InPlanes<NK> b,
+                           long long nb, long long* part, OutPlanes<NK + 1> o,
+                           cudaStream_t st) {
+  const long long n = na + nb;
+  if (n == 0) return 0;
+  const long long tiles = (n + kt_tile<NK>() - 1) / kt_tile<NK>();
+  const long long n_parts = tiles + 1;
+  InPlanes<NK> ak;
+  for (int j = 0; j < NK; ++j) ak.p[j] = a.p[j];
+  kt_merge_partition_kernel<NK><<<(unsigned)((n_parts + 255) / 256), 256, 0,
+                                  st>>>(ak, na, b, nb, part, n_parts);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  kt_merge_kernel<NK><<<(unsigned)tiles, MERGE_THREADS, 0, st>>>(
+      a, na, b, nb, part, o);
+  return (int)cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(COMPRESS_THREADS)
@@ -185,31 +237,42 @@ kt_compress_kernel(const u32* __restrict__ hi, const u32* __restrict__ lo,
   }
 }
 
-KT_EXPORT int kt_merge_tile() { return MERGE_TILE; }
+KT_EXPORT int kt_merge_tile() { return kt_tile<2>(); }
+
+KT_EXPORT int kt_merge_tile_wide() { return kt_tile<4>(); }
 
 KT_EXPORT int kt_compress_block() { return COMPRESS_THREADS; }
 
-// part: scratch of ceil((nA + nB) / MERGE_TILE) + 1 int64 lanes.
+// K3; part: ceil((nA + nB) / kt_merge_tile()) + 1 int64 lanes.
 KT_EXPORT int kt_merge_sorted(const void* a_hi, const void* a_lo,
                               const void* a_w, long long na, const void* b_hi,
                               const void* b_lo, long long nb, void* part,
                               void* o_hi, void* o_lo, void* o_w,
                               void* stream) {
-  const long long n = na + nb;
-  if (n == 0) return 0;
-  const long long tiles = (n + MERGE_TILE - 1) / MERGE_TILE;
-  const long long n_parts = tiles + 1;
-  cudaStream_t st = (cudaStream_t)stream;
-  kt_merge_partition_kernel<<<(unsigned)((n_parts + 255) / 256), 256, 0, st>>>(
-      (const u32*)a_hi, (const u32*)a_lo, na, (const u32*)b_hi,
-      (const u32*)b_lo, nb, (long long*)part, n_parts);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  kt_merge_kernel<<<(unsigned)tiles, MERGE_THREADS, 0, st>>>(
-      (const u32*)a_hi, (const u32*)a_lo, (const u32*)a_w, na,
-      (const u32*)b_hi, (const u32*)b_lo, nb, (const long long*)part,
-      (u32*)o_hi, (u32*)o_lo, (u32*)o_w);
-  return (int)cudaGetLastError();
+  InPlanes<3> a = {{(const u32*)a_hi, (const u32*)a_lo, (const u32*)a_w}};
+  InPlanes<2> b = {{(const u32*)b_hi, (const u32*)b_lo}};
+  OutPlanes<3> o = {{(u32*)o_hi, (u32*)o_lo, (u32*)o_w}};
+  return kt_merge_launch<2>(a, na, b, nb, (long long*)part, o,
+                            (cudaStream_t)stream);
+}
+
+// K6: key planes most significant first; part: ceil((nA + nB) /
+// kt_merge_tile_wide()) + 1 int64 lanes.
+KT_EXPORT int kt_merge_sorted_wide(const void* a3, const void* a2,
+                                   const void* a1, const void* a0,
+                                   const void* a_w, long long na,
+                                   const void* b3, const void* b2,
+                                   const void* b1, const void* b0,
+                                   long long nb, void* part, void* o3,
+                                   void* o2, void* o1, void* o0, void* o_w,
+                                   void* stream) {
+  InPlanes<5> a = {{(const u32*)a3, (const u32*)a2, (const u32*)a1,
+                    (const u32*)a0, (const u32*)a_w}};
+  InPlanes<4> b = {{(const u32*)b3, (const u32*)b2, (const u32*)b1,
+                    (const u32*)b0}};
+  OutPlanes<5> o = {{(u32*)o3, (u32*)o2, (u32*)o1, (u32*)o0, (u32*)o_w}};
+  return kt_merge_launch<4>(a, na, b, nb, (long long*)part, o,
+                            (cudaStream_t)stream);
 }
 
 // counts: ceil(n / COMPRESS_THREADS) int64 lanes.

@@ -1,21 +1,24 @@
-// Window kernels: reads -> folded canonical k-mer keys (1 <= k <= 31).
+// Window kernels: reads -> canonical k-mer words (1 <= k <= 32).
 //
-// Replaces two Pallas functions of kmers_tpu/kernels/window.py:
+// Replaces three Pallas functions of kmers_tpu/kernels/window.py:
 //   K1 pack_canonical_keys_packed  (packed 2-bit words + validity bitmaps)
 //   K2 pack_canonical_keys         (ASCII bytes, stage "canon")
-// Output: two int32 planes [B, L], lane p = the window that starts at
-// base p ("p-order").  A valid lane holds the canonical word (hi, lo); an
-// invalid lane is exactly (0x80000000, 0) -- the invalid flag folded into
-// bit 31 of hi, which is structurally clear for k <= 31.
+//   K5 pack_canonical_hash         (ASCII bytes, canonical word + hash)
+// Output planes are [B, L], lane p = the window that starts at base p
+// ("p-order").  K1/K2 (k <= 31) emit two int32 planes: a valid lane holds
+// the canonical word (hi, lo), an invalid lane is exactly (0x80000000, 0)
+// -- the invalid flag folded into bit 31 of hi, structurally clear for
+// k <= 31.  K5 (k <= 32) emits canon hi/lo, hash hi/lo and a valid byte,
+// the four words zero on invalid lanes (window.py:177-186).
 //
-// Both kernels are bound by device-memory bytes: per output lane they do
-// some 40 integer operations against 8 bytes written and 0.5 (K1) or 1
-// (K2) bytes read.  The design keeps the traffic at that floor: one
-// thread per output lane, so each 32-bit store of a warp is one
-// contiguous 128-byte line; K1 reads the <= 3 code words and <= 2
-// validity words its window spans, which neighbouring threads share in
-// L1; K2 stages a row segment plus its (k-1)-byte halo in shared memory
-// once, so every input byte crosses device memory once.  The TPU
+// All three are bound by device-memory bytes: per output lane they do
+// some 40 (K5: 60) integer operations against 8 (K5: 17) bytes written
+// and 0.5 (K1) or 1 (K2, K5) bytes read.  The design keeps the traffic
+// at that floor: one thread per output lane, so each 32-bit store of a
+// warp is one contiguous 128-byte line; K1 reads the <= 3 code words and
+// <= 2 validity words its window spans, which neighbouring threads share
+// in L1; K2/K5 stage a row segment plus its (k-1)-byte halo in shared
+// memory once, so every input byte crosses device memory once.  The TPU
 // kernel's q-layout, rolls, L % 128 limit and block-row limit were
 // workarounds for Mosaic and have no counterpart here: the unit table is
 // a multiset, so p-order serves it for any L % 32 == 0.
@@ -24,21 +27,35 @@
 
 #define WIN_THREADS 256
 
-// Shared tail of K1 and K2 (window.py:_canon_hash_tail, stage "canon"):
-// reverse complement by complement + swap ladder + shift, canonical =
-// min(fw, rc) by (hi, lo), then fold the invalid flag.
+// Shared tail of K1, K2 and K5 (window.py:_canon_hash_tail): reverse
+// complement by complement + swap ladder + shift, canonical = min(fw, rc)
+// by (hi, lo).
+__device__ __forceinline__ u64 kt_canonical64(u64 fw, int k) {
+  const u64 rc = kt_revcomp64(fw, k);
+  return fw < rc ? fw : rc;
+}
+
+// K1/K2: the canonical word with the invalid flag folded in.
 __device__ __forceinline__ void kt_fold_canonical(u64 fw, int k, bool valid,
                                                   u32* out_hi, u32* out_lo) {
-  u64 x = ~fw;
-  x = ((x >> 2) & 0x3333333333333333ull) | ((x & 0x3333333333333333ull) << 2);
-  x = ((x >> 4) & 0x0F0F0F0F0F0F0F0Full) | ((x & 0x0F0F0F0F0F0F0F0Full) << 4);
-  x = ((x >> 8) & 0x00FF00FF00FF00FFull) | ((x & 0x00FF00FF00FF00FFull) << 8);
-  x = ((x >> 16) & 0x0000FFFF0000FFFFull) | ((x & 0x0000FFFF0000FFFFull) << 16);
-  x = (x >> 32) | (x << 32);
-  const u64 rc = x >> (64 - 2 * k);
-  const u64 c = fw < rc ? fw : rc;
+  const u64 c = kt_canonical64(fw, k);
   *out_hi = valid ? (u32)(c >> 32) : KT_INVALID_HI;
   *out_lo = valid ? (u32)c : 0u;
+}
+
+// The forward word of the window at seg[t..t+k-1] (k <= 32) and whether
+// all its bytes are bases.
+__device__ __forceinline__ u64 kt_window64(const uint8_t* seg, int t, int k,
+                                           bool* valid) {
+  u64 fw = 0;
+  bool ok_all = true;
+  for (int i = 0; i < k; ++i) {
+    bool ok;
+    fw |= (u64)kt_code(seg[t + i], &ok) << (2 * i);
+    ok_all &= ok;
+  }
+  *valid = ok_all;
+  return fw;
 }
 
 // K1: one thread per output lane of a [B, L] batch, L % 32 == 0.
@@ -82,27 +99,43 @@ __global__ void kt_pack_keys_ascii_kernel(const uint8_t* __restrict__ reads,
   extern __shared__ uint8_t seg[];
   const long long row = blockIdx.x / segs;
   const int p0 = (int)(blockIdx.x % segs) * WIN_THREADS;
-  const uint8_t* rd = reads + row * L;
-  for (int i = threadIdx.x; i < WIN_THREADS + k - 1; i += blockDim.x) {
-    const int p = p0 + i;
-    seg[i] = p < L ? rd[p] : (uint8_t)'N';
-  }
-  __syncthreads();
+  kt_stage_segment(reads, seg, row, p0, WIN_THREADS + k - 1, L, 'N');
   const int p = p0 + threadIdx.x;
   if (p >= L) return;
 
-  u64 fw = 0;
-  bool valid = p <= L - k;
-  for (int i = 0; i < k; ++i) {
-    const u32 c = seg[threadIdx.x + i];
-    const u32 internal = (c >> 1) & 3u;          // A=0 C=1 T=2 G=3
-    const u32 code = internal ^ (internal >> 1); // A=0 C=1 G=2 T=3
-    const u32 lower = c | 0x20u;
-    valid &= lower == 'a' || lower == 'c' || lower == 'g' || lower == 't';
-    fw |= (u64)code << (2 * i);
-  }
+  bool bases;
+  const u64 fw = kt_window64(seg, threadIdx.x, k, &bases);
   const long long lane = row * L + p;
-  kt_fold_canonical(fw, k, valid, out_hi + lane, out_lo + lane);
+  kt_fold_canonical(fw, k, bases && p <= L - k, out_hi + lane,
+                    out_lo + lane);
+}
+
+// K5: as K2, plus the mixer hash of the canonical word; k <= 32.
+__global__ void kt_pack_hash_ascii_kernel(const uint8_t* __restrict__ reads,
+                                          u32* __restrict__ canon_hi,
+                                          u32* __restrict__ canon_lo,
+                                          u32* __restrict__ hash_hi,
+                                          u32* __restrict__ hash_lo,
+                                          uint8_t* __restrict__ valid_out,
+                                          int L, int k, int segs, u64 seed) {
+  extern __shared__ uint8_t seg[];
+  const long long row = blockIdx.x / segs;
+  const int p0 = (int)(blockIdx.x % segs) * WIN_THREADS;
+  kt_stage_segment(reads, seg, row, p0, WIN_THREADS + k - 1, L, 'N');
+  const int p = p0 + threadIdx.x;
+  if (p >= L) return;
+
+  bool bases;
+  const u64 fw = kt_window64(seg, threadIdx.x, k, &bases);
+  const bool valid = bases && p <= L - k;
+  const u64 c = kt_canonical64(fw, k);
+  const u64 h = kt_mix64((u32)(c >> 32), (u32)c, seed);
+  const long long lane = row * L + p;
+  canon_hi[lane] = valid ? (u32)(c >> 32) : 0u;
+  canon_lo[lane] = valid ? (u32)c : 0u;
+  hash_hi[lane] = valid ? (u32)(h >> 32) : 0u;
+  hash_lo[lane] = valid ? (u32)h : 0u;
+  valid_out[lane] = valid;
 }
 
 KT_EXPORT int kt_pack_keys_packed(const void* words, const void* vbits,
@@ -128,6 +161,22 @@ KT_EXPORT int kt_pack_keys_ascii(const void* reads, void* out_hi,
   kt_pack_keys_ascii_kernel<<<(unsigned)blocks, WIN_THREADS, smem,
                               (cudaStream_t)stream>>>(
       (const uint8_t*)reads, (u32*)out_hi, (u32*)out_lo, L, k, segs);
+  return (int)cudaGetLastError();
+}
+
+KT_EXPORT int kt_pack_hash_ascii(const void* reads, void* canon_hi,
+                                 void* canon_lo, void* hash_hi,
+                                 void* hash_lo, void* valid, int B, int L,
+                                 int k, unsigned long long seed,
+                                 void* stream) {
+  if ((long long)B * L == 0) return 0;
+  const int segs = (L + WIN_THREADS - 1) / WIN_THREADS;
+  const long long blocks = (long long)B * segs;
+  const size_t smem = WIN_THREADS + k - 1;
+  kt_pack_hash_ascii_kernel<<<(unsigned)blocks, WIN_THREADS, smem,
+                              (cudaStream_t)stream>>>(
+      (const uint8_t*)reads, (u32*)canon_hi, (u32*)canon_lo, (u32*)hash_hi,
+      (u32*)hash_lo, (uint8_t*)valid, L, k, segs, (u64)seed);
   return (int)cudaGetLastError();
 }
 

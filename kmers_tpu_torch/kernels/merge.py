@@ -1,16 +1,17 @@
-"""Consolidation kernels K3 and K4.
+"""Consolidation kernels K3, K6 and K4.
 
 Counterparts of ``kmers_tpu/kernels/merge.py``'s ``merge_sorted`` (K3,
-two key planes, without ``with_idx``) and ``compress_flagged`` (K4).  All
-planes are 1-D int32 tensors holding uint32 bit patterns.  CUDA source:
-``csrc/merge.cu``.
+two key planes, without ``with_idx``), ``merge_sorted_wide`` (K6, four
+key planes: 128-bit keys) and ``compress_flagged`` (K4).  All planes are
+1-D int32 tensors holding uint32 bit patterns.  CUDA source:
+``csrc/merge.cu`` (K3 and K6 are one kernel template).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core import u64
+from ..core import u64, u128
 from . import _build, check_tensor, count_launch, on_cuda
 
 
@@ -57,6 +58,44 @@ def merge_sorted(a_hi, a_lo, a_w, b_hi, b_lo):
     _build.check(code, "merge_sorted")
     count_launch("merge_sorted")
     return tuple(out)
+
+
+def merge_sorted_wide_plain(a_keys, a_w, b_keys):
+    """Plain version of K6: one stable unsigned 128-bit sort of A then B."""
+    keys = [torch.cat([a, b]) for a, b in zip(a_keys, b_keys)]
+    b_w = ((b_keys[0] >> 31) & 1) ^ 1
+    order = u128.argsort(*u128.join_planes(*keys))
+    return (tuple(p[order] for p in keys), torch.cat([a_w, b_w])[order])
+
+
+def merge_sorted_wide(a_keys, a_w, b_keys):
+    """K6: merge_sorted for 128-bit keys.  a_keys / b_keys are 4-tuples of
+    planes, most significant first (UnitTableWide's layout: the folded
+    dead flag is bit 31 of plane 0).  Returns (keys 4-tuple, w) of exactly
+    nA + nB lanes (kmers_tpu/kernels/merge.py:509 pads to its tile)."""
+    a_keys, b_keys = tuple(a_keys), tuple(b_keys)
+    if len(a_keys) != 4 or len(b_keys) != 4:
+        raise ValueError("merge_sorted_wide takes four key planes a side")
+    na, nb = a_w.shape[0], b_keys[0].shape[0]
+    _check_planes(na, **{f"a{i}": p for i, p in enumerate(a_keys)}, a_w=a_w)
+    _check_planes(nb, **{f"b{i}": p for i, p in enumerate(b_keys)})
+    if not on_cuda(*a_keys, a_w, *b_keys):
+        return merge_sorted_wide_plain(a_keys, a_w, b_keys)
+    n = na + nb
+    device = a_w.device
+    out = [torch.empty(n, dtype=torch.int32, device=device) for _ in range(5)]
+    with torch.cuda.device(device):
+        lib = _build.lib()
+        tile = lib.kt_merge_tile_wide()
+        part = torch.empty(-(-n // tile) + 1, dtype=torch.int64, device=device)
+        code = lib.kt_merge_sorted_wide(
+            *(p.data_ptr() for p in a_keys), a_w.data_ptr(), na,
+            *(p.data_ptr() for p in b_keys), nb, part.data_ptr(),
+            *(o.data_ptr() for o in out),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "merge_sorted_wide")
+    count_launch("merge_sorted_wide")
+    return tuple(out[:4]), out[4]
 
 
 def compress_flagged_plain(hi, lo, pay, keep):

@@ -9,8 +9,11 @@ window at bits 2i, the reference's LSB-first layout):
 
 A window is valid iff its k bases are all valid and it starts at
 p <= L - k; invalid windows carry garbage words that the mask filters.
-These are the plain versions the window kernels (kernels/window.py) are
-held against.  Words are int64, so k <= 31 (bit 63 stays clear).
+These are the plain versions the window kernels (kernels/window.py,
+kernels/window_wide.py) are held against.  A word is one int64 for
+k <= 32 and a (hi, lo) pair of int64 for 33 <= k <= 64 (core/u128.py);
+the packed wide windows have no kernel in the JAX package either, and
+run as they are here on every device.
 """
 
 from __future__ import annotations
@@ -19,8 +22,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..core import u64
-from ..core.spec import check_k
+from ..core import u64, u128
+from ..core.spec import NARROW_MAX_K, check_k_range
 from . import encoding
 
 
@@ -44,9 +47,10 @@ def pack_u32_words(codes: torch.Tensor) -> torch.Tensor:
 
 
 def window_words(codes: torch.Tensor, k: int) -> torch.Tensor:
-    """All k-mer windows of a code array as int64 words; entry p is the
-    k-mer starting at base p (garbage for p > L - k: mask it)."""
-    check_k(k)
+    """All k-mer windows of a code array as int64 words (1 <= k <= 32);
+    entry p is the k-mer starting at base p (garbage for p > L - k: mask
+    it)."""
+    check_k_range(k, 1, 32, "window_words")
     w16 = pack_u32_words(codes)
     if k <= 16:
         return w16 & u64.mask(2 * k)
@@ -75,9 +79,9 @@ class KmerWindows(NamedTuple):
 
 
 def canonical_word(fw: torch.Tensor, rc: torch.Tensor) -> torch.Tensor:
-    """min(fw, rc), the canonical strand.  Both are below 2^62 for
-    k <= 31, so the signed minimum is the unsigned one."""
-    return torch.minimum(fw, rc)
+    """min(fw, rc) as unsigned words, the canonical strand (at k = 32 a
+    word may have bit 63 set)."""
+    return u64.unsigned_min(fw, rc)
 
 
 def _windows(codes: torch.Tensor, vmask: torch.Tensor, k: int) -> KmerWindows:
@@ -125,14 +129,92 @@ def kmer_windows_packed(words: torch.Tensor, validbits: torch.Tensor,
     return _windows(unpack_codes(words, L), unpack_validbits(validbits, L), k)
 
 
+# -- multi-word k-mers (33 <= k <= 64) -----------------------------------------
+
+def window_words_wide(codes: torch.Tensor, k: int) -> tuple:
+    """All k-mer windows for 33 <= k <= 64 as (hi, lo) int64 words: the
+    same log-doubling pack, and a window at p is the four 16-base words
+    at p, p+16, p+32, p+48 with the top one masked
+    (kmers_tpu/ops/kmer.py:270)."""
+    check_k_range(k, 33, 64, "window_words_wide")
+    w16 = pack_u32_words(codes)
+    lo = (_shift_left(w16, 16) << 32) | w16
+    hi_lo = _shift_left(w16, 32)
+    hi_hi = _shift_left(w16, 48)
+    rem = k - 32                        # bases in the high word
+    if rem <= 16:
+        hi_lo = hi_lo & u64.mask(2 * rem)
+        hi_hi = torch.zeros_like(hi_hi)
+    else:
+        hi_hi = hi_hi & u64.mask(2 * (rem - 16))
+    return (hi_hi << 32) | hi_lo, lo
+
+
+class KmerWindowsWide(NamedTuple):
+    """All k-mer windows of a read batch, 128-bit words."""
+
+    fw: tuple             # (hi, lo) int64 forward words, garbage where ~valid
+    rc: tuple             # (hi, lo) int64 reverse-complement words
+    valid: torch.Tensor
+    n_windows: int
+
+
+def canonical_word_wide(fw: tuple, rc: tuple) -> tuple:
+    """Unsigned 128-bit min(fw, rc) (rc on ties, as u128.min_ takes)."""
+    take_fw = u128.lt(*fw, *rc)
+    return (torch.where(take_fw, fw[0], rc[0]),
+            torch.where(take_fw, fw[1], rc[1]))
+
+
+def _windows_wide(codes: torch.Tensor, vmask: torch.Tensor,
+                  k: int) -> KmerWindowsWide:
+    L = codes.shape[-1]
+    if L < k:
+        raise ValueError(f"row length {L} is shorter than k={k}")
+    fw = window_words_wide(codes, k)
+    rc = u128.reverse_complement(*fw, k)
+    n_win = L - k + 1
+    idx = torch.arange(L, device=codes.device)
+    wv = window_valid(vmask, k) & (idx < n_win)
+    return KmerWindowsWide(fw=fw, rc=rc, valid=wv, n_windows=n_win)
+
+
+def kmer_windows_wide(ascii_u8: torch.Tensor, k: int) -> KmerWindowsWide:
+    """kmer_windows for 33 <= k <= 64 (kmers_tpu/ops/kmer.py:301)."""
+    return _windows_wide(encoding.ascii_to_codes(ascii_u8),
+                         encoding.valid_mask(ascii_u8), k)
+
+
+def kmer_windows_packed_wide(words: torch.Tensor, validbits: torch.Tensor,
+                             k: int) -> KmerWindowsWide:
+    """kmer_windows_wide over packed ingest (kmers_tpu/ops/kmer.py:316)."""
+    L = words.shape[-1] * 16
+    if validbits.shape[-1] * 32 != L:
+        raise ValueError(f"words {tuple(words.shape)} and validbits "
+                         f"{tuple(validbits.shape)} disagree on L")
+    return _windows_wide(unpack_codes(words, L),
+                         unpack_validbits(validbits, L), k)
+
+
 _CODE = {"A": 0, "C": 1, "G": 2, "T": 3}
 
 
 def canonical_from_string(s: str) -> int:
     """Canonical word of one k-mer string (any case) as a Python int.
     Raises ValueError on a non-ACGT character or a length outside 1..31."""
+    check_k_range(len(s), 1, NARROW_MAX_K, "canonical_from_string")
+    return _canonical_int(s)
+
+
+def canonical_from_string_wide(s: str) -> int:
+    """canonical_from_string for 33 <= k <= 64: the unsigned 128-bit
+    canonical word (u128.from_ints makes the (hi, lo) query of it)."""
+    check_k_range(len(s), 33, 64, "canonical_from_string_wide")
+    return _canonical_int(s)
+
+
+def _canonical_int(s: str) -> int:
     k = len(s)
-    check_k(k)
     fw = 0
     for i, ch in enumerate(s.upper()):
         if ch not in _CODE:

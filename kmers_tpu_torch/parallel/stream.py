@@ -1,14 +1,16 @@
 """Streaming k-mer counting over many read batches (counterpart of
-``kmers_tpu/parallel/stream.py``, single device, k <= 31).
+``kmers_tpu/parallel/stream.py``, single device, k <= 31 and
+33 <= k <= 63; 128-bit keys past k = 32).
 
   per batch:    unit emission -- the window kernel's folded canonical keys
-                as a count.UnitTable; no per-batch sort.
+                as a count.UnitTable(Wide); no per-batch sort.
   consolidate:  deferred -- unit tables wait in a pending list and merge
                 into the main table every `merge_every` batches (and before
-                any read of the table): one torch.sort of the pending keys,
-                then count.merge_table_with_sorted_units (merge and compress
-                kernels), then _bound_table's eviction if the merged table
-                outgrew capacity.
+                any read of the table): one sort of the pending keys (two
+                stable torch.sorts for 128-bit keys), then
+                count.merge_table_with_sorted_units(_wide) (merge and
+                compress kernels), then _bound_table's eviction if the
+                merged table outgrew capacity.
 
 Eviction policy (the JAX package's): past capacity the LOWEST-count
 entries go first, ties evict the numerically largest keys, and the
@@ -30,11 +32,10 @@ import numpy as np
 import torch
 
 from .. import convert
-from ..core import u64
+from ..core import u64, u128
 from ..core.spec import KmerSpec, check_k
 from . import count as count_ops
 from . import pipeline
-from .count import CountTable
 
 
 def npz_digest(path: str) -> str:
@@ -59,7 +60,17 @@ def _sort_units(pending) -> tuple:
     return u64.split_word(u64.to_unsigned_order(torch.sort(key).values))
 
 
-def _merge_bounded_streaming(table: CountTable, pending, capacity: int):
+def _sort_units_wide(pending) -> tuple:
+    """One unsigned 128-bit sort of all pending wide unit keys (flagged
+    lanes last): four planes."""
+    planes = [torch.cat([t.keys[i].reshape(-1) for t in pending])
+              for i in range(4)]
+    hi, lo = u128.join_planes(*planes)
+    order = u128.argsort(hi, lo)
+    return u128.split_planes(hi[order], lo[order])
+
+
+def _merge_bounded_streaming(table, pending, capacity: int):
     """Sort the pending keys, merge them into the table, bound it.
     Returns (table, dropped_unique, dropped_kmers)."""
     s_hi, s_lo = _sort_units(pending)
@@ -67,22 +78,31 @@ def _merge_bounded_streaming(table: CountTable, pending, capacity: int):
     return _bound_table(merged, capacity)
 
 
-def _bound_table(merged: CountTable, capacity: int):
-    """Bound a compact key-sorted table to `capacity` slots: a slice when
-    it fits, rank eviction (dead last, count descending, key ascending)
-    otherwise.  Returns (table, dropped_unique, dropped_kmers)."""
+def _merge_bounded_streaming_wide(table, pending, capacity: int):
+    """_merge_bounded_streaming for 128-bit keys (K6 and K4)."""
+    merged = count_ops.merge_table_with_sorted_units_wide(
+        table, _sort_units_wide(pending))
+    return _bound_table(merged, capacity)
+
+
+def _bound_table(merged, capacity: int):
+    """Bound a compact key-sorted table (either width) to `capacity`
+    slots: a slice when it fits, rank eviction (dead last, count
+    descending, key ascending) otherwise.  Returns (table, dropped_unique,
+    dropped_kmers)."""
     nu = merged.n_unique
     if nu <= capacity:
-        return CountTable(merged.keys_hi[:capacity], merged.keys_lo[:capacity],
-                          merged.counts[:capacity], nu), 0, 0
+        return count_ops.make_table(
+            tuple(p[:capacity] for p in merged.keys),
+            merged.counts[:capacity], nu), 0, 0
     cnt = merged.counts[:nu]
     # the live prefix is key-ascending, so a stable sort by count
     # descending ranks (count desc, key asc); the first `capacity` stay
     rank = torch.sort(cnt, descending=True, stable=True).indices
     kept = torch.sort(rank[:capacity]).values      # back to key order
     dropped_kmers = int(cnt[rank[capacity:]].to(torch.int64).sum())
-    out = CountTable(merged.keys_hi[kept], merged.keys_lo[kept], cnt[kept],
-                     capacity)
+    out = count_ops.make_table(tuple(p[kept] for p in merged.keys),
+                               cnt[kept], capacity)
     return out, nu - capacity, dropped_kmers
 
 
@@ -102,16 +122,22 @@ def _to_device(a, dtype: torch.dtype, device) -> torch.Tensor:
 
 class StreamingCounter:
     """Fold read batches into one fixed-capacity canonical k-mer table on
-    `device` (k <= 31; the wide tier and k = 32 are not ported)."""
+    `device`: k <= 31 keys are one 64-bit word (two int32 planes),
+    33 <= k <= 63 keys 128 bits (four planes) through the whole stack --
+    windows, sort, merge, eviction, lookup, checkpoint.  k = 32 and 64 (the
+    run-length path) are not ported."""
 
     def __init__(self, k, capacity: int, merge_every: int = 16, *, device):
         self.spec = k if isinstance(k, KmerSpec) else KmerSpec(k)
         check_k(self.spec.k)
         self.k = self.spec.k
+        self.wide = self.spec.wide
         self.capacity = capacity
         self.merge_every = max(1, merge_every)
         self.device = torch.device(device)
-        self.table = count_ops.empty_table(capacity, self.device)
+        empty = (count_ops.empty_table_wide if self.wide
+                 else count_ops.empty_table)
+        self.table = empty(capacity, self.device)
         self._pending = []
         self._pending_kmers = []
         self.batches = 0
@@ -121,17 +147,18 @@ class StreamingCounter:
 
     def update(self, reads) -> None:
         """Count one [B, L] uint8 ASCII batch; consolidation is deferred."""
-        res = pipeline.count_reads(
-            _to_device(reads, torch.uint8, self.device), self.k)
-        self._absorb(res)
+        count = pipeline.count_reads_wide if self.wide else pipeline.count_reads
+        self._absorb(count(_to_device(reads, torch.uint8, self.device),
+                           self.k))
 
     def update_packed(self, words, validbits) -> None:
         """Count one packed batch ([B, L/16] code words + [B, L/32]
         validity bitmaps, io.fastx.read_packed_batches layout)."""
-        res = pipeline.count_reads_packed(
-            _to_device(words, torch.int32, self.device),
-            _to_device(validbits, torch.int32, self.device), self.k)
-        self._absorb(res)
+        count = (pipeline.count_reads_packed_wide if self.wide
+                 else pipeline.count_reads_packed)
+        self._absorb(count(_to_device(words, torch.int32, self.device),
+                           _to_device(validbits, torch.int32, self.device),
+                           self.k))
 
     def _absorb(self, res) -> None:
         self._pending.append(res.table)
@@ -150,8 +177,9 @@ class StreamingCounter:
                 and len(pending) < self.merge_every):
             empty = count_ops.empty_like_table(pending[0])
             pending += [empty] * (self.merge_every - len(pending))
-        new_table, du, dk = _merge_bounded_streaming(
-            self.table, pending, self.capacity)
+        merge = (_merge_bounded_streaming_wide if self.wide
+                 else _merge_bounded_streaming)
+        new_table, du, dk = merge(self.table, pending, self.capacity)
         # commit only after the merge completed: a fault raises before any
         # counter moves, so discard_pending rewinds batches and kmer mass
         # together
@@ -171,17 +199,25 @@ class StreamingCounter:
         self._pending = []
         self._pending_kmers = []
 
-    def lookup(self, words: torch.Tensor) -> torch.Tensor:
-        """Counts (int32) of int64 canonical query words."""
+    def lookup(self, words) -> torch.Tensor:
+        """Counts (int32) of canonical query words: an int64 tensor
+        (k <= 31) or a (hi, lo) pair of int64 tensors (k > 32)."""
         self._consolidate()
+        if self.wide:
+            return count_ops.lookup_wide(
+                self.table, *(w.to(self.device) for w in words))
         return count_ops.lookup(self.table, words.to(self.device))
 
     def to_pairs(self):
-        """Host-side [(word, count)] of live slots, sorted by word."""
+        """Host-side [(word, count)] of live slots, sorted by word; words
+        are unsigned Python ints (128-bit past k = 32)."""
         self._consolidate()
         nu = self.table.n_unique
-        keys = u64.join_planes(self.table.keys_hi[:nu],
-                               self.table.keys_lo[:nu]).cpu().tolist()
+        live = [p[:nu] for p in self.table.keys]
+        if self.wide:
+            keys = u128.to_ints(*u128.join_planes(*live))
+        else:
+            keys = u64.join_planes(*live).cpu().tolist()
         counts = self.table.counts[:nu].cpu().tolist()
         return list(zip(keys, counts))
 
@@ -192,35 +228,31 @@ class StreamingCounter:
         in the same directory, then os.replace, so a crash never leaves a
         truncated checkpoint."""
         self._consolidate()
-        t = convert.table_to_numpy(self.table)
         final = path if path.endswith(".npz") else path + ".npz"
         tmp = final + ".tmp.npz"
         np.savez(
             tmp,
-            counts=t["counts"],
-            n_unique=t["n_unique"],
             k=np.int64(self.k),
             capacity=np.int64(self.capacity),
             batches=np.int64(self.batches),
             kmers=np.int64(self.kmers),
             dropped_unique=np.int64(self.dropped_unique),
             dropped_kmers=np.int64(self.dropped_kmers),
-            keys_hi=t["keys_hi"],
-            keys_lo=t["keys_lo"],
+            **convert.table_to_numpy(self.table),
         )
         os.replace(tmp, final)
 
     @staticmethod
     def load(path: str, *, device) -> "StreamingCounter":
+        """A counter from a checkpoint of either package, either key
+        layout (``keys_hi``... for k <= 32, ``keys_hi_hi``... past it)."""
         with np.load(path if path.endswith(".npz") else path + ".npz") as z:
-            if "keys_hi" not in z.files:
-                raise ValueError(f"{path}: not a k <= 32 checkpoint (the "
-                                 "wide tier is not ported)")
             sc = StreamingCounter(int(z["k"]), int(z["capacity"]),
                                   device=device)
-            sc.table = convert.table_from_numpy(
-                z["keys_hi"], z["keys_lo"], z["counts"], z["n_unique"],
-                device)
+            table = convert.table_from_npz(z, device)
+            if isinstance(table, count_ops.CountTableWide) != sc.wide:
+                raise ValueError(f"{path}: key planes do not fit k={sc.k}")
+            sc.table = table
             sc.batches = int(z["batches"])
             sc.kmers = int(z["kmers"])
             sc.dropped_unique = int(z["dropped_unique"])

@@ -78,7 +78,7 @@ def test_cli_matches_kmers_tpu(fastq, tmp_path, extra, want_rc):
 
 @pytest.mark.parametrize("argv", [
     ["--devices", "2"], ["--partition", "minimizer"], ["-k", "32"],
-    ["-k", "40"],
+    ["-k", "64"],
 ])
 def test_cli_rejects_unported_options(fastq, tmp_path, argv):
     args = ["count", fastq, "-o", str(tmp_path / "x.npz"), "-k", "21",

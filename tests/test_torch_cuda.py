@@ -22,6 +22,7 @@ from kmers_tpu_torch.core import u64
 from kmers_tpu_torch.io import fastx
 from kmers_tpu_torch.kernels import merge as tmerge
 from kmers_tpu_torch.kernels import window as twin
+from kmers_tpu_torch.kernels import window_wide as tww
 from kmers_tpu_torch.parallel.stream import npz_digest
 
 pytestmark = pytest.mark.cuda
@@ -128,3 +129,78 @@ def test_count_on_card_gives_the_reference_table(card, tmp_path):
     assert counts["pack_canonical_keys_packed"] > 0
     assert counts["merge_sorted"] > 0 and counts["compress_flagged"] > 0
     assert npz_digest(out) == smoke.SMOKE_DIGEST
+
+
+def card_reads(card, B, L, seed):
+    rng = np.random.default_rng(seed)
+    reads = np.frombuffer(b"ACGTacgtN", dtype=np.uint8)[
+        rng.integers(0, 9, size=(B, L))].copy()
+    reads[::3, L // 2:] = ord("N")
+    return torch.from_numpy(reads).to(card)
+
+
+@pytest.mark.parametrize("B,L", [(64, 320), (1, 100), (3, 257), (0, 64)])
+def test_hash_kernel_matches_plain(card, B, L):
+    """K5 at k in {1, 16, 17, 31, 32}, a seed above 2^32 included; rows
+    off the block size and one row."""
+    r = card_reads(card, B, L, B + L)
+    for k in (1, 16, 17, 31, 32):
+        for seed in (0, (1 << 40) + 3):
+            assert equal_all(twin.pack_canonical_hash(r, k, seed),
+                             twin.pack_canonical_hash_plain(r, k, seed))
+
+
+@pytest.mark.parametrize("B,L,k", [(64, 320, 63), (1, 63, 63), (3, 100, 33),
+                                   (2, 257, 48), (5, 64, 64), (0, 64, 40)])
+def test_wide_window_kernels_match_plain(card, B, L, k):
+    """K7 and K8 on every lane (K8 leaves invalid lanes unzeroed; its
+    kernel and plain version agree there too); L == k, L % 32 != 0, one
+    row and no rows."""
+    r = card_reads(card, B, L, B * L + k)
+    if k <= 63:
+        assert equal_all(tww.pack_canonical_keys_wide(r, k),
+                         tww.pack_canonical_keys_wide_plain(r, k))
+    for seed in (0, 0xDEADBEEF, (1 << 33) + 1):
+        assert equal_all(tww.pack_canonical_hash_wide(r, k, seed),
+                         tww.pack_canonical_hash_wide_plain(r, k, seed))
+
+
+@pytest.mark.parametrize("na,nb", [(40000, 50000), (0, 5), (7, 0),
+                                   (1025, 1023), (0, 0)])
+def test_wide_merge_kernel_matches_plain(card, na, nb):
+    """K6: 128-bit keys sharing high words (ties in every plane), a dead
+    tail on both sides; lengths off the 1024-lane tile."""
+    g = torch.Generator(device=card).manual_seed(na + nb)
+    rand = lambda n, top: torch.randint(0, top, (n,), device=card,
+                                        generator=g)
+    from kmers_tpu_torch.core import u128
+
+    def sorted_side(n, dead):
+        hi = rand(n, 1 << 4) << 58           # few distinct high words
+        lo = rand(n, 1 << 62) - (1 << 61)    # both signs of the low word
+        hi = torch.where(torch.arange(n, device=card) >= n - dead,
+                         u64.SIGN_BIT, hi)
+        order = u128.argsort(hi, lo)
+        return u128.split_planes(hi[order], lo[order])
+
+    a_keys = sorted_side(na, na // 5)
+    b_keys = sorted_side(nb, nb // 7)
+    a_w = rand(na, 100).to(torch.int32)
+    got = tmerge.merge_sorted_wide(a_keys, a_w, b_keys)
+    want = tmerge.merge_sorted_wide_plain(a_keys, a_w, b_keys)
+    assert equal_all(got[0] + (got[1],), want[0] + (want[1],))
+
+
+def test_wide_count_on_card_gives_the_reference_table(card, tmp_path):
+    fq = smoke.write_smoke_input(str(tmp_path / "smoke.fastq"))
+    out, a_out = str(tmp_path / "t.npz"), str(tmp_path / "a.npz")
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stderr(io.StringIO()):
+        assert main(smoke.smoke_count_args(fq, out, 63)
+                    + ["--device", "cuda"]) == 0
+        assert main(smoke.smoke_count_args(fq, a_out, 63)
+                    + ["--ascii-ingest", "--device", "cuda"]) == 0
+    counts = kernels.launch_counts()
+    assert counts["merge_sorted_wide"] > 0 and counts["compress_flagged"] > 0
+    assert counts["pack_canonical_keys_wide"] > 0
+    assert npz_digest(out) == npz_digest(a_out) == smoke.SMOKE_DIGEST_WIDE

@@ -1,6 +1,6 @@
 """The port runs where JAX is absent: every module imports, and a tiny
-count runs on the CPU, with ``sys.modules["jax"] = None`` (any import of
-jax then fails)."""
+count at k = 15 and at k = 63 (the wide tier) runs on the CPU, with
+``sys.modules["jax"] = None`` (any import of jax then fails)."""
 
 import os
 import re
@@ -26,6 +26,10 @@ out = os.path.join(sys.argv[1], "t.npz")
 assert main(["count", fq, "-k", "15", "-o", out, "--batch", "16",
              "--length", "128", "--device", "cpu"]) == 0
 assert main(["stats", out, "--device", "cpu"]) == 0
+wide = os.path.join(sys.argv[1], "w.npz")
+assert main(["count", fq, "-k", "63", "-o", wide, "--batch", "16",
+             "--length", "128", "--device", "cpu"]) == 0
+assert main(["stats", wide, "--device", "cpu"]) == 0
 assert "kmers_tpu" not in sys.modules and "jax.numpy" not in sys.modules
 print("NOJAX-OK")
 """
@@ -38,6 +42,7 @@ def test_port_imports_and_counts_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert "NOJAX-OK" in proc.stdout
     assert "total kmers:    3440" in proc.stdout      # 40 reads x 86 windows
+    assert "total kmers:    1520" in proc.stdout      # 40 reads x 38 windows
 
 
 def test_port_sources_import_neither_jax_nor_kmers_tpu():

@@ -176,6 +176,6 @@ def test_count_fastx_matches_jax(tmp_path, length):
 
 
 def test_counter_rejects_unported_k():
-    for k in (32, 40):
+    for k in (32, 64):
         with pytest.raises(ValueError):
             StreamingCounter(k, 64, device="cpu")
