@@ -28,6 +28,16 @@ the exit code is non-zero):
      the tests to kmers_tpu's CPU output); an evicting run exits 3 and
      matches the port's CPU run; query and stats agree between the card
      and the CPU.
+  6. the minimizer kernel K9 against its plain version on every lane, for
+     each order (mix64, mix32, mix16, lex) at six (k, w) pairs and at a
+     row length off 32; K9 and plain timed at [2048, 1024], k=31, w=11,
+     mix16 (bench_configs.py's config 4 shape).
+  7. sharded counting, k=31, on the 1M-read set: ShardedStreamingCounter
+     by minimizer (super-k-mers, K9) and by hash partition, each with one
+     shard and with four shards placed on the one card.  Each run must
+     have zero routing overflow, save the table of phase 3's single-device
+     count (npz_digest), and launch K3 and K4 (and K9 under the minimizer
+     partition).
 
 The last three lines: `nvidia-smi` name and power limit, a JSON object
 of the kernels' launches, errors and times, and
@@ -74,7 +84,13 @@ KERNEL_INFO = {
                                  "kmers_tpu/kernels/window_wide.py:147"),
     "pack_canonical_hash_wide": ("kmers_tpu_torch/kernels/csrc/window_wide.cu",
                                  "kmers_tpu/kernels/window_wide.py:178"),
+    "minimizer_kernel": ("kmers_tpu_torch/kernels/csrc/minimizer.cu",
+                         "kmers_tpu/kernels/minimizer.py:278"),
 }
+# the sharded runs of phase 7: (partition, shards, route_capacity); the
+# minimizer partition's budget counts super-k-mers, ~12 per 150 bp read
+SHARDED_RUNS = (("minimizer", 1, 1 << 16), ("minimizer", 4, 1 << 13),
+                ("hash", 1, 1 << 20), ("hash", 4, 1 << 16))
 
 
 def say(msg: str) -> None:
@@ -550,6 +566,117 @@ def phase_reference(stats: dict, workdir: str) -> None:
     say("phase 5 reference: " + "; ".join(notes))
 
 
+def phase_minimizer(stats: dict, seed: int) -> None:
+    """K9 against its plain version on every lane, then timed."""
+    import numpy as np
+    import torch
+
+    from kmers_tpu_torch.kernels import minimizer as kmin
+
+    rs = np.random.RandomState(seed + 9)
+    reads = seeded_reads(rs, *SIZES["hash"])
+    odd = seeded_reads(rs, 333, 999)
+    err = 0
+    for batch in (reads, odd):
+        r = torch.from_numpy(batch).to(DEVICE)
+        for order in kmin.ORDERS:
+            for k, w in ((31, 11), (21, 7), (18, 4), (16, 5), (31, 31),
+                         (5, 3)):
+                err = max(err, max_abs_err(
+                    kmin.minimizer_kernel(r, k, w, seed, order),
+                    kmin.minimizer_kernel_plain(r, k, w, seed, order)))
+    # the shapes phase 7's minimizer runs give K9: one shard's rows of a
+    # [4096, 256] batch at D = 1 and D = 4, k=31 w=11 mix16, seed 0
+    batch, length = SIZES["window"]
+    main_shapes = [(batch // shards, length) for p, shards, _ in SHARDED_RUNS
+                   if p == "minimizer"]
+    for shape in main_shapes:
+        r = torch.from_numpy(seeded_reads(rs, *shape)).to(DEVICE)
+        err = max(err, max_abs_err(
+            kmin.minimizer_kernel(r, 31, 11, 0, "mix16"),
+            kmin.minimizer_kernel_plain(r, 31, 11, 0, "mix16")))
+    if err:
+        raise AssertionError(f"minimizer_kernel differs from its plain "
+                             f"version (max_abs_err {err})")
+    r = torch.from_numpy(reads).to(DEVICE)
+    stats["kernels"]["minimizer_kernel"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: kmin.minimizer_kernel(r, 31, 11, order="mix16")),
+        plain_ms=time_ms(
+            lambda: kmin.minimizer_kernel_plain(r, 31, 11, order="mix16")))
+    res = stats["kernels"]["minimizer_kernel"]
+    say(f"phase 6 minimizer kernel: bit-exact vs plain for 4 orders x 6 "
+        f"(k, w) at [{reads.shape[0]}, {reads.shape[1]}] and [333, 999], "
+        f"k=31 w=11 mix16 at the sharded runs' {main_shapes}; k=31 w=11 "
+        f"mix16 {res['ms']:.3f} ms (plain {res['plain_ms']:.3f} ms)")
+
+
+def phase_sharded(stats: dict, workdir: str) -> None:
+    """ShardedStreamingCounter on the 1M-read set, four configurations;
+    each table must be phase 3's single-device table."""
+    import torch
+
+    from kmers_tpu_torch import kernels
+    from kmers_tpu_torch.parallel.mesh import make_mesh
+    from kmers_tpu_torch.parallel.stream import (ShardedStreamingCounter,
+                                                 auto_merge_every,
+                                                 count_fastx, npz_digest,
+                                                 pending_table_lanes)
+
+    fastq = os.path.join(workdir, "ecoli_1m.fastq")
+    want = npz_digest(os.path.join(workdir, "ecoli_1m_k31.npz"))
+    capacity, batch, length = 1 << 24, 4096, 256
+    k9 = 0
+    for partition, shards, route_capacity in SHARDED_RUNS:
+        merge_every = auto_merge_every(capacity, pending_table_lanes(
+            batch, length, devices=shards, route_capacity=route_capacity,
+            partition=partition, k=31, minimizer_w=11))
+        out = os.path.join(workdir, f"ecoli_1m_{partition}_d{shards}.npz")
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        sc = ShardedStreamingCounter(
+            31, capacity, merge_every=merge_every,
+            mesh=make_mesh(devices=[DEVICE] * shards),
+            route_capacity=route_capacity, partition=partition,
+            minimizer_w=11)
+        count_fastx(fastq, 31, capacity, device=DEVICE, batch=batch,
+                    length=length, counter=sc)
+        sc.save(out)
+        sync()
+        wall = time.time() - t0
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        name = f"sharded_{partition}_d{shards}"
+        if sc.route_overflow:
+            raise AssertionError(f"{name}: route_overflow {sc.route_overflow}")
+        if npz_digest(out) != want:
+            raise AssertionError(f"{name}: table differs from the "
+                                 "single-device count")
+        needed = ["merge_sorted", "compress_flagged"] + (
+            ["minimizer_kernel"] if partition == "minimizer" else [])
+        for kernel in needed:
+            if launches[kernel] == 0:
+                raise AssertionError(f"{name}: {kernel} was not launched")
+        k9 += launches["minimizer_kernel"]
+        stats[name] = dict(wall_s=wall, kmers=sc.kmers,
+                           kmers_per_s=sc.kmers / wall,
+                           superkmers=sc.route_superkmers,
+                           route_bytes=sc.route_bytes,
+                           route_capacity=route_capacity,
+                           merge_every=merge_every, peak_bytes=peak,
+                           launches=launches)
+        say(f"phase 7 {name}: {sc.kmers} kmers in {wall:.3f}s = "
+            f"{sc.kmers / wall:.4g} kmers/s, route_capacity "
+            f"{route_capacity}, merge_every {merge_every}, superkmers "
+            f"{sc.route_superkmers}, route_bytes {sc.route_bytes}, peak "
+            f"device memory {peak / 2**20:.1f} MiB, overflow 0, table == "
+            f"single-device; launches "
+            f"{ {n: c for n, c in launches.items() if c} }")
+    stats["launches"]["minimizer_kernel"] = k9
+
+
 def _top_and_absent_queries(path: str) -> list:
     """The most frequent k-mer of a saved table as a string, and AAA..A."""
     import numpy as np
@@ -590,6 +717,8 @@ def main(argv=None) -> int:
     phase_end_to_end(stats, args.seed, args.workdir, 31)
     phase_end_to_end(stats, args.seed, args.workdir, 63)
     phase_reference(stats, args.workdir)
+    phase_minimizer(stats, args.seed)
+    phase_sharded(stats, args.workdir)
 
     kernels = []
     for name, r in stats["kernels"].items():

@@ -7,7 +7,9 @@ CUDA kernel under kernels/csrc, built with nvcc on first use.  Imports
 torch and numpy only, never JAX.
 
 Ported so far: the single-device ``count`` path for k <= 31 and for
-33 <= k <= 63 (128-bit keys), and the hash emitters.
+33 <= k <= 63 (128-bit keys), the hash emitters, minimizers, and
+sharded counting at k <= 31 over a one-process mesh (hash or minimizer
+partition).
 """
 
 from .parallel import stream  # noqa: F401  (kmers_tpu_torch.stream.npz_digest)

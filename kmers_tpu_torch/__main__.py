@@ -8,8 +8,10 @@ Commands (the same as ``python -m kmers_tpu``):
 
 Every command takes --device (default cuda).  A cuda device without a
 card is an error, never a silent fall back to the CPU.  This port counts
-1 <= k <= 31 and 33 <= k <= 63 (128-bit keys) on one device; --devices
-> 1, --partition minimizer, k = 32 and k = 64 exit 2 with an error.
+1 <= k <= 31 and 33 <= k <= 63 (128-bit keys) on one device, and
+1 <= k <= 31 sharded over --devices N (N GPUs; N shards on the CPU with
+--device cpu), hash- or minimizer-partitioned; k = 32, k = 64 and
+--devices > 1 at k > 31 exit 2 with an error.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import os
 import sys
 import time
 
-from .core.spec import check_k
+from .core.spec import NARROW_MAX_K, check_k
 
 
 def _device(name: str):
@@ -34,15 +36,18 @@ def _device(name: str):
 
 
 def _unsupported(args):
-    """The error for an option this port does not run yet, or None."""
-    if args.devices > 1:
-        return "--devices > 1: the sharded pipeline is not ported yet"
-    if args.partition != "hash":
-        return "--partition minimizer: super-k-mer routing is not ported yet"
+    """The error for an option this port does not run yet (or a minimizer
+    width that does not fit k), or None."""
     try:
         check_k(args.k)
     except ValueError as e:
         return str(e)
+    if args.devices > 1 and args.k > NARROW_MAX_K:
+        return (f"--devices > 1 at k={args.k}: the wide sharded pipeline "
+                "(k > 31) is not ported yet")
+    if (args.devices > 1 and args.partition == "minimizer"
+            and not 1 <= args.minimizer_w <= args.k):
+        return f"--minimizer-w {args.minimizer_w} must lie in 1..k={args.k}"
     return None
 
 
@@ -51,23 +56,40 @@ def _cmd_count(args) -> int:
     import traceback
 
     from .io import fastx
-    from .parallel.stream import (StreamingCounter, auto_merge_every,
-                                  pending_table_lanes)
+    from .parallel.mesh import mesh_for
+    from .parallel.stream import (ShardedStreamingCounter, StreamingCounter,
+                                  auto_merge_every, pending_table_lanes)
 
     bad = _unsupported(args)
     if bad:
         print(f"error: {bad}", file=sys.stderr)
         return 2
     device = _device(args.device)
+    sharded = args.devices > 1
+    if sharded:
+        try:
+            mesh = mesh_for(device, args.devices)
+        except ValueError as e:         # more GPUs asked for than exist
+            print(f"error: --devices {args.devices}: {e}", file=sys.stderr)
+            return 2
 
     def auto_cadence():
-        return auto_merge_every(args.capacity,
-                                pending_table_lanes(args.batch, args.length))
+        return auto_merge_every(args.capacity, pending_table_lanes(
+            args.batch, args.length, devices=args.devices,
+            route_capacity=args.route_capacity,
+            route_passes=args.route_passes, partition=args.partition,
+            k=args.k, minimizer_w=args.minimizer_w))
 
     def make_counter():
+        merge_every = args.merge_every or auto_cadence()
+        if sharded:
+            return ShardedStreamingCounter(
+                args.k, args.capacity, merge_every=merge_every, mesh=mesh,
+                route_capacity=args.route_capacity,
+                route_passes=args.route_passes, seed=args.seed,
+                partition=args.partition, minimizer_w=args.minimizer_w)
         return StreamingCounter(args.k, args.capacity,
-                                merge_every=args.merge_every or auto_cadence(),
-                                device=device)
+                                merge_every=merge_every, device=device)
 
     def load_counter(resuming: bool):
         """(counter, batches_to_skip), from the checkpoint if one exists
@@ -76,11 +98,21 @@ def _cmd_count(args) -> int:
                        or os.path.exists(args.output + ".npz"))
         if not (resuming and ckpt_exists):
             return make_counter(), 0
-        sc = StreamingCounter.load(args.output, device=device)
-        if sc.k != args.k:
+        loaded = StreamingCounter.load(args.output, device=device)
+        if loaded.k != args.k:
             raise SystemExit(
-                f"error: checkpoint has k={sc.k}, requested k={args.k}")
-        sc.merge_every = max(1, args.merge_every or auto_cadence())
+                f"error: checkpoint has k={loaded.k}, requested k={args.k}")
+        if sharded:
+            # the flat checkpoint's table and counters move into a sharded
+            # counter (the merged table is a valid merge input either way)
+            sc = make_counter()
+            sc.table = loaded.table
+            sc.batches, sc.kmers = loaded.batches, loaded.kmers
+            sc.dropped_unique = loaded.dropped_unique
+            sc.dropped_kmers = loaded.dropped_kmers
+        else:
+            sc = loaded
+            sc.merge_every = max(1, args.merge_every or auto_cadence())
         print(f"resuming from {args.output}: {sc.batches} batches, "
               f"{sc.kmers} kmers", file=sys.stderr)
         return sc, sc.batches
@@ -93,9 +125,11 @@ def _cmd_count(args) -> int:
     def stream(sc, skip: int) -> None:
         """One pass over the file, skipping `skip` counted batches: packed
         ingest on a background parse thread, ASCII rows for
-        --ascii-ingest or length % 32 != 0."""
+        --ascii-ingest, length % 32 != 0 or the sharded minimizer
+        partition (super-k-mers start from ASCII rows)."""
         nonlocal wrote_output
-        use_packed = args.length % 32 == 0 and not args.ascii_ingest
+        use_packed = (args.length % 32 == 0 and not args.ascii_ingest
+                      and not (sharded and args.partition == "minimizer"))
         if use_packed:
             it = fastx.read_packed_batches(args.input, k=args.k,
                                            batch=args.batch,
@@ -180,6 +214,12 @@ def _cmd_count(args) -> int:
     print(f"{sc.kmers} kmers ({sc.table.n_unique} distinct) "
           f"from {sc.batches} batches in {dt:.1f}s "
           f"-> {args.output}", file=sys.stderr)
+    if getattr(sc, "route_overflow", 0):
+        print(f"WARNING: routing overflow: {sc.route_overflow} kmers "
+              f"dropped in transit ({sc.route_rerouted} re-routed); "
+              f"raise --route-capacity or --route-passes for exact counts",
+              file=sys.stderr)
+        return 3
     if sc.dropped_unique:
         print(f"WARNING: capacity exceeded: {sc.dropped_unique} distinct "
               f"kmers ({sc.dropped_kmers} occurrences) dropped; "
@@ -284,9 +324,25 @@ def main(argv=None) -> int:
                    help="upload raw ASCII rows instead of 2-bit packed "
                         "batches")
     c.add_argument("--devices", type=int, default=1,
-                   help="number of devices (only 1 is ported)")
+                   help="shard counting over N devices (k <= 31): N GPUs, "
+                        "or N shards on the CPU with --device cpu")
+    c.add_argument("--route-capacity", type=int, default=4096,
+                   help="per-destination lane budget per routing pass "
+                        "(sharded mode)")
+    c.add_argument("--route-passes", type=int, default=1,
+                   help="overflow re-route rounds (sharded mode)")
     c.add_argument("--partition", choices=("hash", "minimizer"),
-                   default="hash", help="sharded routing (not ported)")
+                   default="hash",
+                   help="sharded-mode routing: 'hash' ships each k-mer to "
+                        "its hash-prefix owner; 'minimizer' ships packed "
+                        "super-k-mer runs to minimizer owners (ASCII "
+                        "ingest; --route-capacity is then a budget of "
+                        "super-k-mers).  Ignored with --devices 1")
+    c.add_argument("--minimizer-w", type=int, default=11,
+                   help="minimizer width for --partition minimizer")
+    c.add_argument("--seed", type=int, default=0,
+                   help="seed of the routing / minimizer mixer hash "
+                        "(shard assignment only, never counts)")
     add_device(c)
     c.set_defaults(fn=_cmd_count)
 

@@ -139,3 +139,39 @@ def mix_hash(w: torch.Tensor, seed: int = 0) -> torch.Tensor:
     out_lo = mix32(lo ^ mix32(hi ^ s_lo))
     out_hi = mix32(hi ^ mix32(lo ^ s_hi ^ 0x9E3779B9))
     return (out_hi << 32) | out_lo
+
+
+def lex_hash(w: torch.Tensor, k: int) -> torch.Tensor:
+    """LexHasher of k-base words, 1 <= k <= 32: the base reversal without
+    the complement, shifted down to k bases (kmers_tpu.core.u64.lex_hash)."""
+    check_k_range(k, 1, 32, "u64.lex_hash")
+    return shr(reverse_bases(w), 64 - 2 * k)
+
+
+def mix32_order(w: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """The 32-bit minimizer selection order: the low half of mix_hash,
+    high half zero (kmers_tpu.core.u64.mix32_order)."""
+    return mix32((w & LOW32) ^ mix32(shr(w, 32) ^ (seed & LOW32)))
+
+
+def _feistel_key(seed: int, r: int) -> int:
+    return (seed + 0x9E3779B9 * (r + 1)) & LOW32
+
+
+def feistel_mix(w: torch.Tensor, seed: int = 0, rounds: int = 3) -> torch.Tensor:
+    """The bijective 64-bit routing mix of kmers_tpu.core.u64.feistel_mix
+    (three Feistel rounds over mix32), on int64 words.  The halves are
+    uint32 values in int64, so every sum wraps by a mask."""
+    hi, lo = shr(w, 32), w & LOW32
+    for r in range(rounds):
+        hi, lo = lo, hi ^ mix32((lo + _feistel_key(seed, r)) & LOW32)
+    return (hi << 32) | lo
+
+
+def feistel_unmix(w: torch.Tensor, seed: int = 0,
+                  rounds: int = 3) -> torch.Tensor:
+    """Inverse of feistel_mix (exact, elementwise)."""
+    hi, lo = shr(w, 32), w & LOW32
+    for r in reversed(range(rounds)):
+        hi, lo = lo ^ mix32((hi + _feistel_key(seed, r)) & LOW32), hi
+    return (hi << 32) | lo

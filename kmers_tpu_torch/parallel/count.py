@@ -141,6 +141,15 @@ def empty_like_table(t):
                       torch.zeros_like(t.counts), 0)
 
 
+def sort_unit_keys(hi: torch.Tensor, lo: torch.Tensor) -> tuple:
+    """Folded unit keys (any shape) -> one unsigned sort of them, flagged
+    lanes last, as (hi, lo) int32 planes.  Equal keys are interchangeable
+    (unit weight), so no stability is needed."""
+    key = u64.to_unsigned_order(u64.join_planes(hi.reshape(-1),
+                                                lo.reshape(-1)))
+    return u64.split_word(u64.to_unsigned_order(torch.sort(key).values))
+
+
 def _counts_from_positions(pos: torch.Tensor, idx: torch.Tensor,
                            n_unique: int, last_total: torch.Tensor
                            ) -> torch.Tensor:

@@ -1,27 +1,43 @@
 """Per-batch counting (counterpart of ``kmers_tpu/parallel/pipeline.py``).
 
-Single device, "unit" aggregation only: a batch becomes the window
-kernel's raw folded canonical keys, one occurrence per valid lane, with
-no per-batch sort (the deferred consolidation sorts every pending lane
-anyway).  k <= 31 and 33 <= k <= 63; the "compact" and "runlength" forms
-(k = 32, 64), and the sharded pipelines, are not ported yet.
+"unit" aggregation only: a batch becomes raw folded canonical keys, one
+occurrence per valid lane, with no per-batch sort (the deferred
+consolidation sorts every pending lane anyway).
+
+  single device   count_reads(_packed) (k <= 31, window kernels K2 / K1)
+                  and count_reads(_packed)_wide (33 <= k <= 63, K7)
+  mesh, k <= 31   make_sharded_counter: hash-prefix routing of every
+                  k-mer (parallel.route.route);
+                  make_superkmer_counter: minimizer partition, runs of
+                  k-mers that share a minimizer travel as one lane of
+                  packed bases (route_payload), selected by kernel K9.
+
+A sharded step returns one unit table per shard (on its device) and its
+metrics summed over the shards on the mesh's first device.  The
+"compact" and "runlength" forms (k = 32, 64) are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from ..core.spec import MAX_K, check_k_range
+from ..core import u64
+from ..core.spec import MAX_K, NARROW_MAX_K, check_k_range
+from ..kernels import merge as kmerge
+from ..kernels import minimizer as kmini
 from ..kernels import window as kwin
 from ..kernels import window_wide as kww
-from ..ops import kmer
+from ..ops import encoding, kmer
+from . import count as count_ops
+from . import mesh as mesh_ops
+from . import route as route_ops
 from .count import UnitTable, UnitTableWide, unit_table_wide
 
 
 class CountResult(NamedTuple):
-    table: UnitTable | UnitTableWide
+    table: object        # a unit table, or a list of them (one per shard)
     metrics: Dict[str, torch.Tensor]
 
 
@@ -75,3 +91,297 @@ def count_reads_packed_wide(words: torch.Tensor, validbits: torch.Tensor,
                             win.valid)
     return CountResult(table, _count_metrics(
         words.shape[0], win.n_windows, win.valid.sum()))
+
+
+# -- sharded counting: hash-prefix routing -------------------------------------
+
+def _psum(values, device) -> torch.Tensor:
+    """The sum of one scalar tensor per shard, on `device`."""
+    return mesh_ops.gather(values, device).sum()
+
+
+def _check_unit(aggregate: str, k: int, what: str) -> None:
+    if aggregate != "unit":
+        raise NotImplementedError(
+            f"{what}: aggregate={aggregate!r} needs count_words, which is "
+            "not ported; only 'unit' is")
+    check_k_range(k, 1, NARROW_MAX_K, what)
+
+
+def _sharded_count_tail(canon, valid, n_reads: int, n_win: int, mesh,
+                        capacity: int, seed: int,
+                        passes: int) -> CountResult:
+    """Shared tail of the sharded count bodies: route, then each shard's
+    received lanes are its unit table."""
+    routed = route_ops.route(canon, valid, mesh, capacity, seed,
+                             passes=passes)
+    dev = mesh[0]
+    emitted = _psum([v.sum() for v in valid], dev)
+    metrics = {
+        "reads": n_reads,
+        "kmers_emitted": emitted,
+        "windows_skipped": n_reads * n_win - emitted,
+        "route_overflow": _psum([r.overflow for r in routed], dev),
+        "route_rerouted": _psum([r.rerouted for r in routed], dev),
+        # 8 B word + 1 B mask per received lane
+        "route_bytes": sum(r.words.numel() for r in routed) * 9,
+    }
+    return CountResult([count_ops.unit_table(r.words, r.valid)
+                        for r in routed], metrics)
+
+
+def _windows_tail(wins, n_reads: int, mesh, capacity: int, seed: int,
+                  passes: int) -> CountResult:
+    """Each shard's windows -> their canonical words -> the tail."""
+    return _sharded_count_tail(
+        [kmer.canonical_word(w.fw, w.rc) for w in wins],
+        [w.valid for w in wins], n_reads, wins[0].n_windows, mesh, capacity,
+        seed, passes)
+
+
+def _sharded_count_body(reads_local, *, mesh, k: int, capacity: int,
+                        seed: int, passes: int) -> CountResult:
+    """Each shard's [B/D, L] reads -> plain windows -> routed -> owned
+    unit tables."""
+    return _windows_tail([kmer.kmer_windows(r, k) for r in reads_local],
+                         sum(r.shape[0] for r in reads_local), mesh,
+                         capacity, seed, passes)
+
+
+def _sharded_count_body_packed(words_local, validbits_local, *, mesh,
+                               k: int, capacity: int, seed: int,
+                               passes: int) -> CountResult:
+    """_sharded_count_body over each shard's packed ingest."""
+    return _windows_tail(
+        [kmer.kmer_windows_packed(w, v, k)
+         for w, v in zip(words_local, validbits_local)],
+        sum(w.shape[0] for w in words_local), mesh, capacity, seed, passes)
+
+
+def make_sharded_counter(mesh, k: int, *, route_capacity: int, seed: int = 0,
+                         route_passes: int = 1, packed: bool = False,
+                         aggregate: str = "unit"):
+    """A sharded counting step over `mesh` (k <= 31): fn(reads [B, L]
+    uint8), or fn(words [B, L/16], validbits [B, L/32]) with packed=True,
+    -> CountResult with one unit table per shard, holding only the k-mers
+    that shard owns, and metrics summed over the shards.  B must split
+    evenly over the mesh.  The windows are the plain ones of ops.kmer on
+    every device, as in the JAX package (pipeline.py:224-243).
+
+    route_passes > 1 re-routes bucket overflow in extra exchanges (exact
+    while every destination load <= passes * capacity); what still
+    overflows is counted in metrics["route_overflow"]."""
+    _check_unit(aggregate, k, "make_sharded_counter")
+    body = _sharded_count_body_packed if packed else _sharded_count_body
+
+    def fn(*batch) -> CountResult:
+        return body(*(mesh_ops.batch_sharding(x, mesh) for x in batch),
+                    mesh=mesh, k=k, capacity=route_capacity, seed=seed,
+                    passes=route_passes)
+
+    return fn
+
+
+def global_table(result: CountResult) -> count_ops.CountTable:
+    """One key-sorted CountTable (capacity = all received lanes) from a
+    sharded result's per-shard unit tables, on the first shard's device:
+    one sort of every lane, then the streaming merge (K3, K4) into an
+    empty table.  It re-counts across shards, so it is exact for the
+    minimizer partition too, whose shards are not key-disjoint."""
+    tables = result.table
+    dev = tables[0].keys_hi.device
+    s_hi, s_lo = count_ops.sort_unit_keys(
+        mesh_ops.gather([t.keys_hi for t in tables], dev),
+        mesh_ops.gather([t.keys_lo for t in tables], dev))
+    return count_ops.merge_table_with_sorted_units(
+        count_ops.empty_table(0, dev), s_hi, s_lo)
+
+
+# -- sharded counting: super-k-mers (minimizer partition) ----------------------
+#
+# Consecutive k-mers mostly share their minimizer, so a run of r of them
+# travels as ONE lane of packed bases (r + k - 1 <= 2k - w bases) to the
+# shard owning the minimizer, instead of r separate words.  Minimizers
+# are selected on the forward strand while the counted key is canonical,
+# so a k-mer met as a reverse complement elsewhere may land on another
+# shard: per-shard tables are NOT key-disjoint, and every consumer
+# (global_table, the streaming consolidation) re-counts across shards
+# (kmers_tpu/parallel/pipeline.py:606-626).
+
+def _superkmer_payload_words(k: int, w: int) -> int:
+    """uint32 words of a super-k-mer's packed bases: a minimizer serves
+    at most k-w+1 consecutive windows, spanning <= 2k-w bases."""
+    return -(-(2 * (2 * k - w)) // 32)
+
+
+def _superkmer_layout(k: int, w: int):
+    """(nwords, meta_off, fold): where the run's window count (meta,
+    <= k-w+1 <= 31, 5 bits) lives.  When the last payload plane has >= 5
+    spare bits above the packed bases (fold), meta rides there; a
+    receiver's window j reads bits < 2*(2k-w) only and masks to 2k bits."""
+    nwords = _superkmer_payload_words(k, w)
+    meta_off = 2 * (2 * k - w) - 32 * (nwords - 1)
+    return nwords, meta_off, meta_off <= 27
+
+
+def emit_superkmers(reads_local: torch.Tensor, k: int, w: int, seed: int):
+    """Super-k-mers of each row: (owner words int64 [B, L], start bool
+    [B, L], planes, kmers_emitted), planes = nwords packed-base int32
+    planes (uint32 bit patterns) plus, unless folded, a meta plane (the
+    run's window count c).  Lanes are k-mer window positions, live at run
+    starts only.  A run is a maximal stretch of windows with the same
+    minimizer position; minimizers come from K9 under the mix16 order
+    (its plain version for a CPU tensor)."""
+    check_k_range(k, 1, NARROW_MAX_K, "emit_superkmers")
+    check_k_range(w, 1, k, "emit_superkmers (w)")
+    B, L = reads_local.shape
+    wh, wl, pos, v8 = kmini.minimizer_kernel(reads_local, k, w, seed=seed,
+                                             order="mix16")
+    valid = v8.bool()
+    dev = reads_local.device
+    col = torch.arange(L, device=dev).expand(B, L)
+    prev_valid = torch.cat([torch.zeros((B, 1), dtype=torch.bool, device=dev),
+                            valid[:, :-1]], 1)
+    prev_pos = torch.cat([torch.full((B, 1), -1, dtype=pos.dtype, device=dev),
+                          pos[:, :-1]], 1)
+    start = valid & (~prev_valid | (prev_pos != pos))
+    # the next run start or invalid window strictly after p (every run
+    # ends by window L-k: structurally invalid lanes follow)
+    m = torch.where(start | ~valid, col, L)
+    ns_incl = torch.cummin(m.flip(1), dim=1).values.flip(1)
+    ns_excl = torch.cat([ns_incl[:, 1:],
+                         torch.full((B, 1), L, dtype=m.dtype, device=dev)], 1)
+    c = torch.where(start, ns_excl - col, 0)
+    nwords, meta_off, fold = _superkmer_layout(k, w)
+    w16 = kmer.pack_u32_words(encoding.ascii_to_codes(reads_local))
+    planes = [kmer._shift_left(w16, 16 * j) for j in range(nwords)]
+    if fold:
+        # meta rides the last plane's spare bits, above its masked payload
+        planes[-1] = (planes[-1] & u64.mask(meta_off)) | (c << meta_off)
+    else:
+        planes.append(c)
+    return (u64.join_planes(wh, wl), start,
+            tuple(u64.low32_as_int32(p) for p in planes), valid.sum())
+
+
+def expand_superkmers(planes, valid: torch.Tensor, k: int, w: int):
+    """Receiver side: [N] super-k-mer lanes -> (forward window words int64
+    [N, W], validity [N, W]), W = k-w+1.  The int32 planes are read as
+    uint32 values in int64, so every shift is logical; window j is bits
+    [2j, 2j + 2k) of the packed bases, so the folded meta bits never reach
+    a window."""
+    W = k - w + 1
+    _, meta_off, fold = _superkmer_layout(k, w)
+    p64 = [u64.as_uint32(p) for p in planes]
+    if fold:
+        pw, meta = p64, u64.shr(p64[-1], meta_off) & 31
+    else:
+        pw, meta = p64[:-1], p64[-1]
+    zeros = torch.zeros_like(pw[0])
+    word_at = lambda i: pw[i] if i < len(pw) else zeros
+    words = []
+    for j in range(W):
+        b, off = divmod(2 * j, 32)
+        x = word_at(b) | (word_at(b + 1) << 32)
+        if off:
+            x = u64.shr(x, off) | (word_at(b + 2) << (64 - off))
+        words.append(x & u64.mask(2 * k))
+    idx = torch.arange(W, device=valid.device)
+    return (torch.stack(words, -1),
+            valid[..., None] & (idx < meta[..., None]))
+
+
+def _prefilter_superkmers(owner: torch.Tensor, start: torch.Tensor, planes,
+                          budget: int, meta_off: Optional[int],
+                          n_planes: int):
+    """Compact the run-start lanes to the front (compress kernel K4, three
+    planes a pass over one keep mask, so the passes stay lane-aligned)
+    and keep the first `budget` of them.  Returns (owner', valid',
+    planes', dropped_weight): the k-mers (meta) of the start lanes past
+    the budget are counted, never silently dropped."""
+    keep = start.reshape(-1).to(torch.uint8)
+    flat = list(u64.split_word(owner.reshape(-1))) + [
+        p.reshape(-1) for p in planes]
+    zeros = torch.zeros_like(flat[0])
+    outs = []
+    for i in range(0, len(flat), 3):
+        chunk = flat[i:i + 3]
+        outs.extend(kmerge.compress_flagged(
+            *(chunk + [zeros] * (3 - len(chunk))), keep))
+    outs = outs[:len(flat)]
+    n = outs[0].shape[0]
+    n_start = start.sum()
+    n_cap = min(budget, n)
+    pos = torch.arange(n, device=start.device)
+    meta = u64.as_uint32(outs[2 + n_planes - 1])
+    if meta_off is not None:
+        meta = u64.shr(meta, meta_off) & 31
+    dropped_w = torch.where((pos >= n_cap) & (pos < n_start), meta, 0).sum()
+    valid = pos[:n_cap] < torch.clamp(n_start, max=n_cap)
+    return (u64.join_planes(outs[0][:n_cap], outs[1][:n_cap]), valid,
+            tuple(o[:n_cap] for o in outs[2:2 + n_planes]), dropped_w)
+
+
+def make_superkmer_counter(mesh, k: int, w: int, *, route_capacity: int,
+                           seed: int = 0, route_passes: int = 1,
+                           aggregate: str = "unit"):
+    """A sharded counting step with super-k-mer routing (k <= 31), the
+    `--partition minimizer` pipeline: fn(reads [B, L] uint8) ->
+    CountResult with one unit table per shard ([passes * D * C, k-w+1]
+    lanes) and metrics: reads, kmers_emitted, windows_skipped, superkmers
+    (run starts), route_overflow (in K-MERS: the weight of the dropped
+    runs, prefilter drops included), route_rerouted and route_bytes.
+
+    The global table after the cross-shard re-count equals single-device
+    counting.  route_capacity is a budget of super-k-mers per destination.
+    Each shard's run starts are compacted with K4 before the owner sort
+    and passes * D * C of them kept (the JAX package's prefilter, which
+    it runs on the TPU only), on every device: unless that budget
+    truncates, the routed lanes are those of routing every lane."""
+    _check_unit(aggregate, k, "make_superkmer_counter")
+    check_k_range(w, 1, k, "make_superkmer_counter (w)")
+    nwords, meta_off, fold = _superkmer_layout(k, w)
+    n_planes = nwords if fold else nwords + 1
+    d = len(mesh)
+
+    def fn(reads: torch.Tensor) -> CountResult:
+        owners, starts, planes, kmers, n_sk, cap_dropped = ([] for _ in range(6))
+        for r in mesh_ops.batch_sharding(reads, mesh):
+            owner, start, pl, km = emit_superkmers(r, k, w, seed)
+            n_sk.append(start.sum())
+            kmers.append(km)
+            owner, start, pl, dw = _prefilter_superkmers(
+                owner, start, pl, route_passes * d * route_capacity,
+                meta_off if fold else None, n_planes)
+            cap_dropped.append(dw)
+            owners.append(owner)
+            starts.append(start)
+            planes.append(pl)
+        routed = route_ops.route_payload(
+            owners, starts, planes, mesh, route_capacity, seed,
+            passes=route_passes, weight_plane=n_planes - 1,
+            weight_shift=meta_off if fold else 0,
+            weight_mask=31 if fold else None)
+        tables = []
+        for rp in routed:
+            fw, wv = expand_superkmers(rp.planes, rp.valid, k, w)
+            canon = kmer.canonical_word(fw, u64.reverse_complement(fw, k))
+            tables.append(count_ops.unit_table(canon, wv))
+        dev = mesh[0]
+        emitted = _psum(kmers, dev)
+        n_reads = reads.shape[0]
+        overflow = _psum([rp.overflow_weight for rp in routed] + cap_dropped,
+                         dev)
+        metrics = {
+            "reads": n_reads,
+            "kmers_emitted": emitted,
+            "windows_skipped": n_reads * (reads.shape[-1] - k + 1) - emitted,
+            "superkmers": _psum(n_sk, dev),
+            "route_overflow": overflow,
+            "route_rerouted": _psum([rp.rerouted for rp in routed], dev),
+            "route_bytes": sum(rp.valid.numel() for rp in routed)
+            * (4 * n_planes + 1),
+        }
+        return CountResult(tables, metrics)
+
+    return fn

@@ -1,0 +1,212 @@
+"""Hash-prefix routing of k-mers to their owning shards (counterpart of
+``kmers_tpu/parallel/route.py``, k <= 31).
+
+Each of the D shards of a mesh owns 1/D of the 64-bit space of the
+Feistel-mixed key; a k-mer goes to shard ``(f_hi * D) >> 32`` of its mix
+``f = feistel_mix(word)``.  Fixed-capacity buckets stand in for a ragged
+all_to_all, as in the JAX package:
+
+  1. per sender, sort the lanes by owner (invalid lanes last);
+  2. per-owner counts give each bucket's extent in the sorted lanes;
+  3. pass p of ``passes`` cuts lanes [p*C, (p+1)*C) of every bucket into a
+     [D, P + 1, C] send buffer (P planes and the in-bucket mask, stacked):
+     contiguous ranges of the owner-sorted lanes, read from arrays padded
+     so that no range runs off their end;
+  4. one ``mesh.all_to_all`` a pass delivers row r of every sender to
+     shard r.
+
+Lanes past passes * C of a bucket are dropped and counted (``overflow``);
+lanes shipped in passes >= 2 are counted too (``rerouted``).  Every
+function takes one tensor per shard (a list in mesh order) and returns
+one result per shard: the senders' phase runs for every shard, then the
+exchange, then the receivers' phase.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence
+
+import torch
+
+from ..core import u64
+from . import mesh as mesh_ops
+
+
+class Routed(NamedTuple):
+    """k-mer words on their owning shard."""
+
+    words: torch.Tensor     # int64 [passes * D * C] received words
+    valid: torch.Tensor     # bool [passes * D * C]
+    overflow: torch.Tensor  # int64 scalar: lanes this sender dropped
+    rerouted: torch.Tensor  # int64 scalar: lanes it shipped in passes >= 2
+
+
+class RoutedPlanes(NamedTuple):
+    """Payload planes on their owning shard."""
+
+    planes: tuple                 # int32 [passes * D * C] each
+    valid: torch.Tensor
+    overflow: torch.Tensor
+    rerouted: torch.Tensor
+    overflow_weight: torch.Tensor  # the weight field summed over dropped
+    #                                lanes (0 without a weight plane)
+
+
+def _mul_shift32(x: torch.Tensor, d: int) -> torch.Tensor:
+    """floor(x * d / 2^32) for uint32 values x held in int64 (exact: the
+    product stays below 2^63 for any d < 2^31)."""
+    return u64.shr(x * d, 32)
+
+
+def owner_of(words: torch.Tensor, n_shards: int, seed: int = 0) -> torch.Tensor:
+    """The owning shard of int64 words: the multiply-shift of the high
+    half of their Feistel mix (a prefix of the mixed key)."""
+    return _mul_shift32(u64.shr(u64.feistel_mix(words, seed), 32), n_shards)
+
+
+def _owner_boundaries(n_shards: int) -> list:
+    """The f_hi values where ownership changes: owner(x) >= o iff
+    x >= ceil(o * 2^32 / D)."""
+    return [-(-o * (1 << 32) // n_shards) for o in range(n_shards + 1)]
+
+
+def _owner_histogram(owner_sorted: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """Per-owner lane counts [n_shards] of an owner-sorted lane array, by
+    binary search for each bucket's start."""
+    probes = torch.arange(n_shards + 1, dtype=owner_sorted.dtype,
+                          device=owner_sorted.device)
+    bounds = torch.searchsorted(owner_sorted, probes, side="left")
+    return bounds[1:] - bounds[:-1]
+
+
+def bucket_sort(words: torch.Tensor, valid: torch.Tensor, n_shards: int,
+                seed: int = 0):
+    """Sort lanes by owner, invalid last, in the Feistel-mixed domain.
+
+    Returns (mixed words sorted as unsigned, valid, owner, counts
+    [n_shards]).  Invalid lanes become (0xFFFFFFFF, 0xFFFFFFFF), which
+    sorts last; validity is positional (lane < n_valid) and the counts
+    are clipped to n_valid, so a real key that mixes to the sentinel is
+    still counted exactly (equal mixed words are interchangeable)."""
+    f = torch.where(valid, u64.feistel_mix(words, seed), -1)
+    s = u64.to_unsigned_order(torch.sort(u64.to_unsigned_order(f)).values)
+    n_valid = valid.sum()
+    sv = torch.arange(s.shape[-1], device=s.device) < n_valid
+    s_hi = u64.shr(s, 32)
+    # _owner_boundaries(n_shards)[:-1], computed on the device: a host list
+    # copied over would be a blocking copy per sender per batch
+    o = torch.arange(n_shards, device=s.device)
+    probes = (o * (1 << 32) + n_shards - 1) // n_shards
+    bounds = torch.minimum(torch.searchsorted(s_hi, probes, side="left"),
+                           n_valid)
+    counts = torch.cat([bounds[1:], n_valid[None]]) - bounds
+    return s, sv, _mul_shift32(s_hi, n_shards), counts
+
+
+def _bucket_sends(arrs, counts: torch.Tensor, capacity: int, passes: int):
+    """One sender's send buffers: send_at(p) is the [D, P + 1, capacity]
+    buffer of pass p, row d holding bucket d's lanes p*C .. (p+1)*C of the
+    P owner-sorted arrays (one dtype) and, last, their in-bucket mask in
+    that dtype.  Bucket d is the contiguous range starting at
+    cumsum(counts)[d] - counts[d]; the arrays are padded by passes * C
+    zeros so that no range is clamped (a clamped start would shift real
+    bucket lanes under the mask)."""
+    starts = torch.cumsum(counts, 0) - counts
+    pad = passes * capacity
+    padded = torch.stack([torch.cat([a, a.new_zeros(pad)]) for a in arrs])
+    lane = torch.arange(capacity, device=counts.device)
+
+    def send_at(p: int) -> torch.Tensor:
+        off = p * capacity
+        bufs = padded[:, starts[:, None] + off + lane]
+        mask = lane < torch.clamp(counts - off, 0, capacity)[:, None]
+        return torch.cat([bufs, mask[None].to(padded.dtype)]).transpose(0, 1)
+
+    return send_at
+
+
+def _exchange(sorted_planes: Sequence[Sequence[torch.Tensor]],
+              counts: Sequence[torch.Tensor], mesh, capacity: int,
+              passes: int):
+    """The shared body of route and route_payload, after each sender's
+    owner sort: per pass, one all_to_all of every sender's stacked planes
+    and mask.  Returns, per shard, (received planes, received valid,
+    overflow, rerouted); received lanes run pass, sender, lane."""
+    d = len(mesh)
+    senders = [_bucket_sends(planes, cnt, capacity, passes)
+               for planes, cnt in zip(sorted_planes, counts)]
+    recv = [[] for _ in range(d)]
+    for p in range(passes):
+        got = mesh_ops.all_to_all([send_at(p) for send_at in senders], mesh)
+        for r in range(d):
+            recv[r].append(got[r])
+    n_planes = len(sorted_planes[0])
+    out = []
+    for r, cnt in enumerate(counts):
+        x = torch.stack(recv[r])          # [passes, D, P + 1, C]
+        planes = [x[:, :, i].reshape(-1) for i in range(n_planes)]
+        overflow = torch.clamp(cnt - passes * capacity, min=0).sum()
+        rerouted = torch.clamp(cnt - capacity, 0, (passes - 1) * capacity).sum()
+        out.append((planes, x[:, :, n_planes].reshape(-1) != 0, overflow,
+                    rerouted))
+    return out
+
+
+def route(words: Sequence[torch.Tensor], valid: Sequence[torch.Tensor], mesh,
+          capacity: int, seed: int = 0, passes: int = 1) -> list:
+    """Route each shard's k-mer words (int64, any shape) to their owners.
+    capacity is the per-destination lane budget of a sender per pass;
+    each shard receives passes * D * capacity lanes, exact while every
+    bucket holds <= passes * capacity lanes.  The wire carries the mixed
+    words; receivers unmix them.  Returns one Routed per shard."""
+    d = len(mesh)
+    sorted_words, counts = [], []
+    for w, v in zip(words, valid):
+        s, _, _, cnt = bucket_sort(w.reshape(-1), v.reshape(-1), d, seed)
+        sorted_words.append((s,))
+        counts.append(cnt)
+    return [Routed(u64.feistel_unmix(planes[0], seed), rv, ov, rr)
+            for planes, rv, ov, rr in _exchange(sorted_words, counts, mesh,
+                                                capacity, passes)]
+
+
+def route_payload(owner_words: Sequence[torch.Tensor],
+                  valid: Sequence[torch.Tensor], planes, mesh,
+                  capacity: int, seed: int = 0, passes: int = 1,
+                  weight_plane: Optional[int] = None, weight_shift: int = 0,
+                  weight_mask: Optional[int] = None) -> list:
+    """Route each shard's int32 payload planes to the shard owning
+    owner_of(owner_words); the owner words themselves are not shipped.
+    The owner sort is stable, so a bucket keeps its lanes' order.
+
+    weight_plane (an index into a shard's planes) makes overflow
+    weight-aware: overflow_weight sums that plane's bit field
+    (>> weight_shift, & weight_mask, read as uint32) over dropped lanes,
+    e.g. the k-mers of each dropped super-k-mer.  Returns one
+    RoutedPlanes per shard."""
+    d = len(mesh)
+    sorted_planes, counts, weights = [], [], []
+    for ow, v, pl in zip(owner_words, valid, planes):
+        v = v.reshape(-1)
+        owner = torch.where(v, owner_of(ow.reshape(-1), d, seed), d)
+        order = torch.sort(owner, stable=True).indices
+        o = owner[order]
+        sp = [p.reshape(-1)[order] for p in pl]
+        cnt = _owner_histogram(o, d)
+        if weight_plane is None:
+            weights.append(torch.zeros((), dtype=torch.int64, device=o.device))
+        else:
+            starts = torch.cumsum(cnt, 0) - cnt
+            rank = (torch.arange(o.shape[0], device=o.device)
+                    - starts[torch.clamp(o, 0, d - 1)])
+            dropped = (o < d) & (rank >= passes * capacity)
+            wvals = u64.shr(u64.as_uint32(sp[weight_plane]), weight_shift)
+            if weight_mask is not None:
+                wvals = wvals & weight_mask
+            weights.append(torch.where(dropped, wvals, 0).sum())
+        sorted_planes.append(sp)
+        counts.append(cnt)
+    return [RoutedPlanes(tuple(planes_r), rv, ov, rr, w)
+            for (planes_r, rv, ov, rr), w in zip(
+                _exchange(sorted_planes, counts, mesh, capacity, passes),
+                weights)]

@@ -1,6 +1,7 @@
 """Streaming k-mer counting over many read batches (counterpart of
-``kmers_tpu/parallel/stream.py``, single device, k <= 31 and
-33 <= k <= 63; 128-bit keys past k = 32).
+``kmers_tpu/parallel/stream.py``): ``StreamingCounter`` on one device,
+k <= 31 and 33 <= k <= 63 (128-bit keys past k = 32), and
+``ShardedStreamingCounter`` over a mesh, k <= 31.
 
   per batch:    unit emission -- the window kernel's folded canonical keys
                 as a count.UnitTable(Wide); no per-batch sort.
@@ -35,6 +36,7 @@ from .. import convert
 from ..core import u64, u128
 from ..core.spec import KmerSpec, check_k
 from . import count as count_ops
+from . import mesh as mesh_ops
 from . import pipeline
 
 
@@ -53,11 +55,9 @@ def npz_digest(path: str) -> str:
 
 def _sort_units(pending) -> tuple:
     """One sort of all pending unit keys, unsigned (flagged lanes last)."""
-    hi = torch.cat([t.keys_hi.reshape(-1) for t in pending])
-    lo = torch.cat([t.keys_lo.reshape(-1) for t in pending])
-    # equal keys are interchangeable (unit weight): no stability needed
-    key = u64.to_unsigned_order(u64.join_planes(hi, lo))
-    return u64.split_word(u64.to_unsigned_order(torch.sort(key).values))
+    return count_ops.sort_unit_keys(
+        torch.cat([t.keys_hi.reshape(-1) for t in pending]),
+        torch.cat([t.keys_lo.reshape(-1) for t in pending]))
 
 
 def _sort_units_wide(pending) -> tuple:
@@ -106,8 +106,8 @@ def _bound_table(merged, capacity: int):
     return out, nu - capacity, dropped_kmers
 
 
-def _to_device(a, dtype: torch.dtype, device) -> torch.Tensor:
-    """numpy (uint32 read as int32 bit patterns) or tensor -> device."""
+def _as_tensor(a, dtype: torch.dtype) -> torch.Tensor:
+    """numpy (uint32 read as int32 bit patterns) or tensor, checked."""
     if isinstance(a, torch.Tensor):
         t = a
     else:
@@ -117,7 +117,12 @@ def _to_device(a, dtype: torch.dtype, device) -> torch.Tensor:
         t = torch.from_numpy(a)
     if t.dtype != dtype:
         raise TypeError(f"batch dtype {t.dtype}, want {dtype}")
-    return t.to(device).contiguous()
+    return t
+
+
+def _to_device(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """numpy (uint32 read as int32 bit patterns) or tensor -> device."""
+    return _as_tensor(a, dtype).to(device).contiguous()
 
 
 class StreamingCounter:
@@ -260,32 +265,170 @@ class StreamingCounter:
         return sc
 
 
+class ShardedStreamingCounter(StreamingCounter):
+    """StreamingCounter over a mesh (k <= 31): each batch splits by rows
+    over the shards, its k-mers travel to their owning shards
+    (partition="hash": every k-mer, route.route; "minimizer": runs of
+    k-mers sharing a minimizer as packed super-k-mers, route_payload),
+    and each shard's received lanes become a pending unit table on its
+    device.  At consolidation the pending shard tables are gathered to
+    the table's device (the mesh's first) and merge as the single-device
+    counter's do, so the table is the same.  Routing overflow is counted
+    per batch (route_overflow in k-mers, route_rerouted) and committed
+    with the merge, as are the super-k-mer count and the wire bytes of
+    the send buffers (route_superkmers, route_bytes); raise
+    route_capacity or route_passes until route_overflow is 0 for exact
+    tables."""
+
+    def __init__(self, k, capacity: int, merge_every: int = 16, *,
+                 mesh=None, n_devices: Optional[int] = None,
+                 route_capacity: int = 4096, route_passes: int = 1,
+                 seed: Optional[int] = None, partition: str = "hash",
+                 minimizer_w: Optional[int] = None):
+        mesh = mesh if mesh is not None else mesh_ops.make_mesh(n_devices)
+        super().__init__(k, capacity, merge_every, device=mesh[0])
+        if self.wide:
+            raise NotImplementedError(
+                f"k={self.k}: the wide sharded path (k > 31) is not ported")
+        if partition not in ("hash", "minimizer"):
+            raise ValueError(f"partition must be 'hash' or 'minimizer', "
+                             f"got {partition!r}")
+        # seed and minimizer width default from the spec; kwargs win
+        seed = self.spec.seed if seed is None else seed
+        if minimizer_w is None:
+            minimizer_w = self.spec.w if self.spec.w is not None else 11
+        self.mesh = mesh
+        self.n_devices = len(mesh)
+        self.route_capacity = route_capacity
+        self.route_passes = route_passes
+        self.partition = partition
+        self.route_overflow = 0
+        self.route_rerouted = 0
+        self.route_superkmers = 0
+        self.route_bytes = 0
+        self._pending_overflow = []
+        route = dict(route_capacity=route_capacity, route_passes=route_passes,
+                     seed=seed)
+        if partition == "minimizer":
+            self._scount = pipeline.make_superkmer_counter(
+                mesh, self.k, minimizer_w, **route)
+            self._scount_packed = None    # super-k-mers start from ASCII
+        else:
+            self._scount = pipeline.make_sharded_counter(mesh, self.k, **route)
+            self._scount_packed = pipeline.make_sharded_counter(
+                mesh, self.k, packed=True, **route)
+
+    def _pad_rows(self, t: torch.Tensor, fill: int) -> torch.Tensor:
+        """Pad a batch with `fill` rows so that it splits over the mesh."""
+        short = -t.shape[0] % self.n_devices
+        if not short:
+            return t
+        filler = torch.full((short,) + tuple(t.shape[1:]), fill,
+                            dtype=t.dtype, device=t.device)
+        return torch.cat([t, filler])
+
+    def update(self, reads) -> None:
+        rows = self._pad_rows(_as_tensor(reads, torch.uint8), ord("N"))
+        self._absorb_sharded(self._scount(rows))
+
+    def update_packed(self, words, validbits) -> None:
+        if self._scount_packed is None:
+            raise NotImplementedError(
+                "minimizer partitioning counts from ASCII batches "
+                "(use update / --ascii-ingest)")
+        self._absorb_sharded(self._scount_packed(
+            self._pad_rows(_as_tensor(words, torch.int32), 0),
+            self._pad_rows(_as_tensor(validbits, torch.int32), 0)))
+
+    def _absorb_sharded(self, res) -> None:
+        # device scalars only: fetching here would sync every batch
+        self._pending_overflow.append(
+            (res.metrics["route_overflow"], res.metrics["route_rerouted"],
+             res.metrics.get("superkmers"), res.metrics["route_bytes"]))
+        self._absorb(res)
+
+    def discard_pending(self) -> None:
+        super().discard_pending()
+        self._pending_overflow = []
+
+    def _consolidate(self) -> None:
+        # gather each pending batch's shard tables to the table's device
+        self._pending = [
+            count_ops.UnitTable(
+                mesh_ops.gather([t.keys_hi for t in p], self.device),
+                mesh_ops.gather([t.keys_lo for t in p], self.device))
+            if isinstance(p, list) else p for p in self._pending]
+        super()._consolidate()
+        # the overflow counters commit only after the merge succeeded (it
+        # raised otherwise), as the k-mer mass does: discard_pending's
+        # rewind leaves them consistent
+        for ov, rr, sk, nbytes in self._pending_overflow:
+            self.route_overflow += int(ov)
+            self.route_rerouted += int(rr)
+            self.route_bytes += nbytes
+            if sk is not None:
+                self.route_superkmers += int(sk)
+        self._pending_overflow = []
+
+
 def auto_merge_every(capacity: int, batch_lanes: int) -> int:
     """Consolidation cadence balancing the merge's two lane terms
-    (capacity / merge_every against batch_lanes), clamped to [8, 64]."""
+    (capacity / merge_every against batch_lanes), clamped to [8, 64].
+    batch_lanes is pending_table_lanes()."""
     return max(8, min(64, capacity // max(1, batch_lanes)))
 
 
-def pending_table_lanes(batch: int, length: int) -> int:
-    """Lane count of one pending per-batch table (single device)."""
+def pending_table_lanes(batch: int, length: int, devices: int = 1,
+                        route_capacity: int = 4096, route_passes: int = 1,
+                        partition: str = "hash", k: int = 0,
+                        minimizer_w: int = 11) -> int:
+    """Lane count of one pending per-batch table.  Single device: the
+    batch's window lanes, batch * length.  Sharded: each of the D shards
+    receives passes * D * route_capacity lanes, so passes * D^2 *
+    route_capacity, times k - w + 1 windows per super-k-mer lane under
+    the minimizer partition."""
+    if devices > 1:
+        lanes = route_passes * devices * devices * route_capacity
+        if partition == "minimizer":
+            lanes *= max(1, k - minimizer_w + 1)
+        return lanes
     return batch * length
 
 
 def count_fastx(path: str, k: int, capacity: int, *, device,
                 batch: int = 256, length: int = 256, merge_every: int = 0,
                 counter: Optional[StreamingCounter] = None,
-                packed: bool = True,
-                prefetch_depth: int = 512) -> StreamingCounter:
+                packed: bool = True, prefetch_depth: int = 512,
+                devices: int = 1, route_capacity: int = 4096,
+                route_passes: int = 1, partition: str = "hash",
+                minimizer_w: int = 11) -> StreamingCounter:
     """Count every k-mer of a FASTA/FASTQ file on `device`.  Pass
-    `counter` to resume from a checkpoint.  packed=True ships 2-bit words
-    + validity bitmaps (needs length % 32 == 0, else ASCII rows)."""
+    `counter` to resume from a checkpoint (or to bring a counter of one's
+    own, e.g. a ShardedStreamingCounter over an explicit mesh).
+    packed=True ships 2-bit words + validity bitmaps (needs length % 32 ==
+    0, else ASCII rows; the minimizer partition always takes ASCII rows).
+    devices > 1 shards the count over that many devices of `device`'s
+    kind (mesh.mesh_for)."""
     from ..io import fastx
 
     if merge_every <= 0:
-        merge_every = auto_merge_every(capacity,
-                                       pending_table_lanes(batch, length))
-    sc = counter if counter is not None else StreamingCounter(
-        k, capacity, merge_every=merge_every, device=device)
+        merge_every = auto_merge_every(capacity, pending_table_lanes(
+            batch, length, devices=devices, route_capacity=route_capacity,
+            route_passes=route_passes, partition=partition, k=k,
+            minimizer_w=minimizer_w))
+    if counter is not None:
+        sc = counter
+    elif devices > 1:
+        sc = ShardedStreamingCounter(
+            k, capacity, merge_every=merge_every,
+            mesh=mesh_ops.mesh_for(device, devices),
+            route_capacity=route_capacity, route_passes=route_passes,
+            partition=partition, minimizer_w=minimizer_w)
+    else:
+        sc = StreamingCounter(k, capacity, merge_every=merge_every,
+                              device=device)
+    if getattr(sc, "partition", "hash") == "minimizer":
+        packed = False
     if packed and length % 32 == 0:
         it = fastx.read_packed_batches(path, k=k, batch=batch, length=length)
         for words, validbits in fastx.prefetch(it, depth=prefetch_depth):

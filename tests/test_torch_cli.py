@@ -77,14 +77,39 @@ def test_cli_matches_kmers_tpu(fastq, tmp_path, extra, want_rc):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--devices", "2"], ["--partition", "minimizer"], ["-k", "32"],
-    ["-k", "64"],
+    ["--devices", "2", "-k", "33"],                     # wide sharded path
+    ["--devices", "2", "--partition", "minimizer", "-k", "63"],
+    ["-k", "32"], ["-k", "64"],
 ])
 def test_cli_rejects_unported_options(fastq, tmp_path, argv):
     args = ["count", fastq, "-o", str(tmp_path / "x.npz"), "-k", "21",
             "--device", "cpu"] + argv
     rc, _, err = run(port_main, args)
     assert rc == 2 and "not ported" in err
+
+
+def test_cli_rejects_a_minimizer_width_past_k(fastq, tmp_path):
+    rc, _, err = run(port_main, [
+        "count", fastq, "-o", str(tmp_path / "x.npz"), "-k", "9",
+        "--devices", "2", "--partition", "minimizer", "--device", "cpu"])
+    assert rc == 2 and "--minimizer-w 11" in err
+
+
+ROUTING_FLAGS = ["--seed", "7", "--route-capacity", "512", "--route-passes",
+                 "2", "--minimizer-w", "9"]
+
+
+@pytest.mark.parametrize("extra", [[], ROUTING_FLAGS])
+def test_cli_one_device_ignores_the_partition(fastq, tmp_path, extra):
+    """--devices 1 --partition minimizer counts on one device with packed
+    ingest, as kmers_tpu's CLI does, and the routing flags parse: the
+    table is kmers_tpu's."""
+    j_out, t_out = str(tmp_path / "j.npz"), str(tmp_path / "t.npz")
+    argv = ["--devices", "1", "--partition", "minimizer"] + extra
+    assert run(jax_main, smoke.smoke_count_args(fastq, j_out) + argv)[0] == 0
+    assert run(port_main, smoke.smoke_count_args(fastq, t_out) + argv
+               + ["--device", "cpu"])[0] == 0
+    assert npz_digest(t_out) == npz_digest(j_out) == smoke.SMOKE_DIGEST
 
 
 def test_cli_cuda_device_needs_a_card(fastq, tmp_path):

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on an
-NVIDIA card, and the count path on the card against the CPU.
+NVIDIA card, and the count paths (one device, and two shards on the card)
+against the reference tables.
 
 Imports no JAX, so it runs on a machine that has only torch; there the
 repository's tests/conftest.py (which imports JAX) must be skipped:
@@ -204,3 +205,46 @@ def test_wide_count_on_card_gives_the_reference_table(card, tmp_path):
     assert counts["merge_sorted_wide"] > 0 and counts["compress_flagged"] > 0
     assert counts["pack_canonical_keys_wide"] > 0
     assert npz_digest(out) == npz_digest(a_out) == smoke.SMOKE_DIGEST_WIDE
+
+
+@pytest.mark.parametrize("B,L", [(64, 320), (1, 100), (3, 257), (0, 64)])
+def test_minimizer_kernel_matches_plain(card, B, L):
+    """K9 on every lane (invalid lanes are zero in both), every order, the
+    (k, w) pairs of the minimizer path and its edges (k up to 64, w from 1
+    to 32); rows off the block size, L % 32 != 0, one row and no rows."""
+    from kmers_tpu_torch.kernels import minimizer as tkmin
+
+    r = card_reads(card, B, L, B * L + 9)
+    for order in tkmin.ORDERS:
+        for k, w in ((31, 11), (21, 7), (18, 4), (16, 5), (31, 31), (5, 3),
+                     (45, 13), (64, 32), (64, 1)):
+            for seed in (0, (1 << 40) + 3):
+                assert equal_all(tkmin.minimizer_kernel(r, k, w, seed, order),
+                                 tkmin.minimizer_kernel_plain(r, k, w, seed,
+                                                              order))
+
+
+@pytest.mark.parametrize("partition", ["hash", "minimizer"])
+def test_sharded_count_on_card_gives_the_reference_table(card, tmp_path,
+                                                         partition):
+    """Two shards on the one card: the smoke input's table, through K9
+    (minimizer partition), K3 and K4."""
+    from kmers_tpu_torch.parallel.mesh import make_mesh
+    from kmers_tpu_torch.parallel.stream import (ShardedStreamingCounter,
+                                                 count_fastx)
+
+    fq = smoke.write_smoke_input(str(tmp_path / "smoke.fastq"))
+    sc = ShardedStreamingCounter(31, 65536, merge_every=4,
+                                 mesh=make_mesh(devices=[card] * 2),
+                                 route_capacity=(16384 if partition == "hash"
+                                                 else 2048),
+                                 partition=partition)
+    kernels.reset_launch_counts()
+    count_fastx(fq, 31, 65536, device=card, batch=256, length=160,
+                counter=sc)
+    sc.save(str(tmp_path / "t"))
+    counts = kernels.launch_counts()
+    assert sc.route_overflow == 0
+    assert counts["merge_sorted"] > 0 and counts["compress_flagged"] > 0
+    assert (counts["minimizer_kernel"] > 0) == (partition == "minimizer")
+    assert npz_digest(str(tmp_path / "t.npz")) == smoke.SMOKE_DIGEST

@@ -1,5 +1,6 @@
 """The port runs where JAX is absent: every module imports, and a tiny
-count at k = 15 and at k = 63 (the wide tier) runs on the CPU, with
+count at k = 15 (on one device, and sharded over two CPU shards by hash
+and by minimizer) and at k = 63 (the wide tier) runs on the CPU, with
 ``sys.modules["jax"] = None`` (any import of jax then fails)."""
 
 import os
@@ -26,6 +27,13 @@ out = os.path.join(sys.argv[1], "t.npz")
 assert main(["count", fq, "-k", "15", "-o", out, "--batch", "16",
              "--length", "128", "--device", "cpu"]) == 0
 assert main(["stats", out, "--device", "cpu"]) == 0
+from kmers_tpu_torch.parallel.stream import npz_digest
+for part in ("hash", "minimizer"):
+    sh = os.path.join(sys.argv[1], part + ".npz")
+    assert main(["count", fq, "-k", "15", "-o", sh, "--batch", "16",
+                 "--length", "128", "--device", "cpu", "--devices", "2",
+                 "--partition", part, "--minimizer-w", "7"]) == 0
+    assert npz_digest(sh) == npz_digest(out), part
 wide = os.path.join(sys.argv[1], "w.npz")
 assert main(["count", fq, "-k", "63", "-o", wide, "--batch", "16",
              "--length", "128", "--device", "cpu"]) == 0
