@@ -65,7 +65,10 @@ DEVICE = "cuda"
 # the end-to-end read count (1M reads of 150 bp on a 4.6 Mbp genome)
 SIZES = dict(window=(4096, 256), hash=(2048, 1024), merge=1 << 24,
              compress=1 << 25, reads=1_000_000, short_reads=100_000,
-             genome=4_641_652)
+             genome=4_641_652, sort_big=1 << 24, odd=1_000_003)
+# the least time of a kernel: the bytes it must move (each input read
+# once, each output written once) at the H100 SXM's HBM3 rate, 3.35 TB/s
+HBM_BYTES_PER_MS = 3.35e12 / 1e3
 
 KERNEL_INFO = {
     "pack_canonical_keys_packed": ("kmers_tpu_torch/kernels/csrc/window.cu",
@@ -86,6 +89,12 @@ KERNEL_INFO = {
                                  "kmers_tpu/kernels/window_wide.py:178"),
     "minimizer_kernel": ("kmers_tpu_torch/kernels/csrc/minimizer.cu",
                          "kmers_tpu/kernels/minimizer.py:278"),
+    "segment_count_keys": ("kmers_tpu_torch/kernels/csrc/count_tile.cu",
+                           "kmers_tpu/kernels/count_tile.py:234"),
+    "segment_count_keys_wide": ("kmers_tpu_torch/kernels/csrc/count_tile.cu",
+                                "kmers_tpu/kernels/count_tile.py:262"),
+    "radix_sort_u64": ("kmers_tpu_torch/kernels/csrc/sort.cu",
+                       "kmers_tpu/kernels/sort.py:184"),
 }
 # the sharded runs of phase 7: (partition, shards, route_capacity); the
 # minimizer partition's budget counts super-k-mers, ~12 per 150 bp read
@@ -135,6 +144,15 @@ def time_ms(fn, reps: int = 10) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_ms(n_bytes: int) -> float:
+    """Least device time for moving n_bytes through HBM, in ms."""
+    return n_bytes / HBM_BYTES_PER_MS
 
 
 def max_abs_err(got, want) -> int:
@@ -209,11 +227,15 @@ def phase_kernels(stats: dict, seed: int) -> None:
         max_abs_err=e1,
         ms=time_ms(lambda: kwin.pack_canonical_keys_packed(words, vbits, 31)),
         plain_ms=time_ms(
-            lambda: kwin.pack_canonical_keys_packed_plain(words, vbits, 31)))
+            lambda: kwin.pack_canonical_keys_packed_plain(words, vbits, 31)),
+        bound_ms=bound_ms(nbytes(words, vbits, *kwin.pack_canonical_keys_packed(
+            words, vbits, 31))), library_ms=None)
     res["pack_canonical_keys"] = dict(
         max_abs_err=e2,
         ms=time_ms(lambda: kwin.pack_canonical_keys(reads, 31)),
-        plain_ms=time_ms(lambda: kwin.pack_canonical_keys_plain(reads, 31)))
+        plain_ms=time_ms(lambda: kwin.pack_canonical_keys_plain(reads, 31)),
+        bound_ms=bound_ms(nbytes(reads, *kwin.pack_canonical_keys(reads, 31))),
+        library_ms=None)
 
     # K3: a 2^24-lane table (3/4 live) with 2^24 sorted unit keys, half of
     # them drawn from the table's keys, a tenth flagged dead
@@ -241,7 +263,9 @@ def phase_kernels(stats: dict, seed: int) -> None:
         max_abs_err=max_abs_err(kmerge.merge_sorted(*args3),
                                 kmerge.merge_sorted_plain(*args3)),
         ms=time_ms(lambda: kmerge.merge_sorted(*args3)),
-        plain_ms=time_ms(lambda: kmerge.merge_sorted_plain(*args3)))
+        plain_ms=time_ms(lambda: kmerge.merge_sorted_plain(*args3)),
+        bound_ms=bound_ms(nbytes(*args3, *kmerge.merge_sorted(*args3))),
+        library_ms=None)
 
     # K4 at 2^25 lanes, about half kept
     n4 = SIZES["compress"]
@@ -252,11 +276,15 @@ def phase_kernels(stats: dict, seed: int) -> None:
     kept = int(keep.sum())
     got = kmerge.compress_flagged(*planes, keep)
     want = kmerge.compress_flagged_plain(*planes, keep)
+    # the library route: boolean-mask indexing of the stacked planes
+    stacked, mask = torch.stack(planes), keep.bool()
     res["compress_flagged"] = dict(
         max_abs_err=max_abs_err([x[:kept] for x in got],
                                 [x[:kept] for x in want]),
         ms=time_ms(lambda: kmerge.compress_flagged(*planes, keep)),
-        plain_ms=time_ms(lambda: kmerge.compress_flagged_plain(*planes, keep)))
+        plain_ms=time_ms(lambda: kmerge.compress_flagged_plain(*planes, keep)),
+        bound_ms=bound_ms(nbytes(*planes, keep) + 12 * kept),
+        library_ms=time_ms(lambda: stacked[:, mask]))
 
     kernels_hash(stats, rs)
     kernels_wide(stats, rs, g)
@@ -309,7 +337,8 @@ def kernels_hash(stats: dict, rs) -> None:
                                     kwin.pack_canonical_hash_plain(reads, k, s))
                         for k in (1, 16, 17, 31, 32) for s in seeds),
         ms=time_ms(lambda: kwin.pack_canonical_hash(reads, 31)),
-        plain_ms=time_ms(lambda: kwin.pack_canonical_hash_plain(reads, 31)))
+        plain_ms=time_ms(lambda: kwin.pack_canonical_hash_plain(reads, 31)),
+        bound_ms=bound_ms(nbytes(reads, *step5)), library_ms=None)
     res["pack_canonical_hash_wide"] = dict(
         max_abs_err=max(
             max_abs_err(kww.pack_canonical_hash_wide(reads, k, s),
@@ -317,7 +346,8 @@ def kernels_hash(stats: dict, rs) -> None:
             for k in (33, 48, 63, 64) for s in seeds),
         ms=time_ms(lambda: kww.pack_canonical_hash_wide(reads, 63)),
         plain_ms=time_ms(
-            lambda: kww.pack_canonical_hash_wide_plain(reads, 63)))
+            lambda: kww.pack_canonical_hash_wide_plain(reads, 63)),
+        bound_ms=bound_ms(nbytes(reads, *step8)), library_ms=None)
 
 
 def kernels_wide(stats: dict, rs, g) -> None:
@@ -337,7 +367,10 @@ def kernels_wide(stats: dict, rs, g) -> None:
                                     kww.pack_canonical_keys_wide_plain(reads, k))
                         for k in (33, 47, 48, 63)),
         ms=time_ms(lambda: kww.pack_canonical_keys_wide(reads, 63)),
-        plain_ms=time_ms(lambda: kww.pack_canonical_keys_wide_plain(reads, 63)))
+        plain_ms=time_ms(lambda: kww.pack_canonical_keys_wide_plain(reads, 63)),
+        bound_ms=bound_ms(nbytes(reads, *kww.pack_canonical_keys_wide(reads,
+                                                                      63))),
+        library_ms=None)
 
     # K6: a 2^24-lane table (3/4 live, k=63 keys: hi below 2^62) with
     # 2^24 sorted unit keys, half of them drawn from the table's keys, a
@@ -371,7 +404,10 @@ def kernels_wide(stats: dict, rs, g) -> None:
             flat(kmerge.merge_sorted_wide_plain(a_keys, a_w, b_keys))),
         ms=time_ms(lambda: kmerge.merge_sorted_wide(a_keys, a_w, b_keys)),
         plain_ms=time_ms(
-            lambda: kmerge.merge_sorted_wide_plain(a_keys, a_w, b_keys)))
+            lambda: kmerge.merge_sorted_wide_plain(a_keys, a_w, b_keys)),
+        bound_ms=bound_ms(nbytes(*a_keys, a_w, *b_keys, *flat(
+            kmerge.merge_sorted_wide(a_keys, a_w, b_keys)))),
+        library_ms=None)
 
 
 def run_cli(argv) -> tuple:
@@ -386,9 +422,9 @@ def run_cli(argv) -> tuple:
 
 def independent_count(fastq: str, k: int, batch: int, length: int):
     """torch.unique over the plain windows' valid canonical keys: int64
-    words for k <= 31; for k > 32, unique [n, 2] rows of (hi, lo) with
-    both sign bits flipped, so that the rows' signed order is the keys'
-    unsigned one."""
+    words for k <= 32, [n, 2] rows of (hi, lo) for k > 32; every word's
+    sign bit flipped, so that the signed order is the keys' unsigned
+    one (a k = 32 key may carry bit 63, a k = 64 key bit 127)."""
     import numpy as np
     import torch
 
@@ -403,14 +439,16 @@ def independent_count(fastq: str, k: int, batch: int, length: int):
         v = torch.from_numpy(vbits.view(np.int32)).to(DEVICE)
         if k <= 32:
             win = kmer.kmer_windows_packed(w, v, k)
-            keys.append(kmer.canonical_word(win.fw, win.rc)[win.valid])
+            keys.append(u64.to_unsigned_order(
+                kmer.canonical_word(win.fw, win.rc)[win.valid]))
         else:
             win = kmer.kmer_windows_packed_wide(w, v, k)
             hi, lo = kmer.canonical_word_wide(win.fw, win.rc)
             keys.append(u64.to_unsigned_order(
                 torch.stack([hi[win.valid], lo[win.valid]], 1)))
     if k <= 32:
-        return torch.unique(torch.cat(keys), return_counts=True)
+        words, counts = torch.unique(torch.cat(keys), return_counts=True)
+        return u64.to_unsigned_order(words), counts
     rows, counts = torch.unique(torch.cat(keys), dim=0, return_counts=True)
     return u64.to_unsigned_order(rows), counts
 
@@ -427,7 +465,18 @@ def table_keys(table):
     return torch.stack(u128.join_planes(*live), 1)
 
 
-def phase_end_to_end(stats: dict, seed: int, workdir: str, k: int) -> None:
+# k -> (kernels the packed count must launch, the --ascii-ingest run's
+# window kernel): unit batches at k <= 31 and 33 <= k <= 63; k = 32 and
+# k = 64 count through the run-length tables, torch sorts only
+E2E_KERNELS = {31: (("pack_canonical_keys_packed", "merge_sorted",
+                     "compress_flagged"), "pack_canonical_keys"),
+               63: (("merge_sorted_wide", "compress_flagged"),
+                    "pack_canonical_keys_wide"),
+               32: ((), None), 64: ((), None)}
+
+
+def phase_end_to_end(stats: dict, seed: int, workdir: str, k: int,
+                     phase: int) -> None:
     """`count -k k` on the 1M-read set, and the 100k-read ASCII run."""
     import torch
 
@@ -449,11 +498,7 @@ def phase_end_to_end(stats: dict, seed: int, workdir: str, k: int) -> None:
     out = os.path.join(workdir, f"ecoli_1m_k{k}.npz")
     count_args = ["-k", str(k), "--capacity", "16777216", "--batch", "4096",
                   "--length", "256", "--device", DEVICE]
-    wide = k > 32
-    window, ascii_window, merge = (
-        ("pack_canonical_keys_packed", "pack_canonical_keys", "merge_sorted")
-        if not wide else
-        (None, "pack_canonical_keys_wide", "merge_sorted_wide"))
+    needed, ascii_window = E2E_KERNELS[k]
 
     sync()
     torch.cuda.reset_peak_memory_stats()
@@ -466,8 +511,8 @@ def phase_end_to_end(stats: dict, seed: int, workdir: str, k: int) -> None:
     peak = torch.cuda.max_memory_allocated()
     if rc != 0:
         raise AssertionError(f"count -k {k} exited {rc}:\n{err}")
-    for name in (window, merge, "compress_flagged"):
-        if name and launches[name] == 0:
+    for name in needed:
+        if launches[name] == 0:
             raise AssertionError(f"{name} was not launched on the k={k} "
                                  "main path")
 
@@ -495,36 +540,40 @@ def phase_end_to_end(stats: dict, seed: int, workdir: str, k: int) -> None:
     ascii_launches = kernels.launch_counts()
     if rc_p or rc_a:
         raise AssertionError(f"100k runs exited {rc_p}, {rc_a}:\n{err_p}{err_a}")
-    if ascii_launches[ascii_window] == 0:
+    if ascii_window and ascii_launches[ascii_window] == 0:
         raise AssertionError(f"{ascii_window} was not launched by "
                              "--ascii-ingest")
     if npz_digest(p_out) != npz_digest(a_out):
         raise AssertionError(f"k={k} --ascii-ingest table differs from packed")
-    if wide:
-        stats["launches"].update(merge_sorted_wide=launches[merge])
-    else:
-        stats["launches"].update((n, launches[n]) for n in
-                                 (window, merge, "compress_flagged"))
-    stats["launches"][ascii_window] = ascii_launches[ascii_window]
+    stats["launches"].update((n, launches[n]) for n in needed
+                             if n not in stats["launches"])
+    if ascii_window:
+        stats["launches"][ascii_window] = ascii_launches[ascii_window]
     stats[f"e2e_k{k}"] = dict(wall_s=wall, kmers=sc.kmers, distinct=nu,
                               kmers_per_s=sc.kmers / wall, peak_bytes=peak,
                               reads=SIZES["reads"], bases=bases,
                               launches=launches)
-    say(f"phase {4 if wide else 3} end to end k={k}: {bases} bases, "
+    say(f"phase {phase} end to end k={k}: {bases} bases, "
         f"{sc.kmers} kmers, {nu} distinct in {wall:.3f}s = "
         f"{sc.kmers / wall:.4g} kmers/s, peak device memory "
         f"{peak / 2**20:.1f} MiB; table == torch.unique count; launches "
         f"{ {n: c for n, c in launches.items() if c} }; --ascii-ingest "
-        f"table == packed ({ascii_window} {ascii_launches[ascii_window]})")
+        f"table == packed"
+        + (f" ({ascii_window} {ascii_launches[ascii_window]})"
+           if ascii_window else ""))
 
 
-def phase_reference(stats: dict, workdir: str) -> None:
+def phase_reference(stats: dict, workdir: str, ks=(31, 63),
+                    phase: int = 5) -> None:
+    """The smoke count's digest (pinned to kmers_tpu's table), an evicting
+    run equal to the CPU's, stats and query on the card and the CPU."""
     from kmers_tpu_torch import smoke
     from kmers_tpu_torch.parallel.stream import npz_digest
 
     fastq = smoke.write_smoke_input(os.path.join(workdir, "smoke.fastq"))
     notes = []
-    for k, digest in ((31, smoke.SMOKE_DIGEST), (63, smoke.SMOKE_DIGEST_WIDE)):
+    for k in ks:
+        digest = smoke.SMOKE_DIGESTS[k]
         out = os.path.join(workdir, f"smoke_k{k}_gpu.npz")
         rc, _, err = run_cli(smoke.smoke_count_args(fastq, out, k)
                              + ["--device", DEVICE])
@@ -563,7 +612,7 @@ def phase_reference(stats: dict, workdir: str) -> None:
         notes.append(f"k={k}: smoke digest == {digest[:16]}...; evicting "
                      f"run exit 3 ({dropped[0]}) == cpu; stats and query "
                      f"agree (top k-mer count {top_count})")
-    say("phase 5 reference: " + "; ".join(notes))
+    say(f"phase {phase} reference: " + "; ".join(notes))
 
 
 def phase_minimizer(stats: dict, seed: int) -> None:
@@ -603,7 +652,10 @@ def phase_minimizer(stats: dict, seed: int) -> None:
         max_abs_err=err,
         ms=time_ms(lambda: kmin.minimizer_kernel(r, 31, 11, order="mix16")),
         plain_ms=time_ms(
-            lambda: kmin.minimizer_kernel_plain(r, 31, 11, order="mix16")))
+            lambda: kmin.minimizer_kernel_plain(r, 31, 11, order="mix16")),
+        bound_ms=bound_ms(nbytes(r, *kmin.minimizer_kernel(r, 31, 11,
+                                                           order="mix16"))),
+        library_ms=None)
     res = stats["kernels"]["minimizer_kernel"]
     say(f"phase 6 minimizer kernel: bit-exact vs plain for 4 orders x 6 "
         f"(k, w) at [{reads.shape[0]}, {reads.shape[1]}] and [333, 999], "
@@ -677,6 +729,256 @@ def phase_sharded(stats: dict, workdir: str) -> None:
     stats["launches"]["minimizer_kernel"] = k9
 
 
+def phase_sort_kernels(stats: dict, seed: int) -> None:
+    """Phase 8: K10 (narrow and wide) and K11 bit for bit against their
+    plain versions, on the keys the count forms give them: a [4096, 256]
+    batch's folded canonical keys at k=31 and k=63 (2^20 lanes, and the
+    first 1,000,003 of them, off the block size), the compact form's sort
+    keys at k=31 (2^20), and 2^24 and 1,000,003 seeded 64-bit keys with
+    duplicates and flagged lanes; median times, and torch.sort's for K11."""
+    import numpy as np
+    import torch
+
+    from kmers_tpu_torch.core import u64, u128
+    from kmers_tpu_torch.kernels import count_tile as kct
+    from kmers_tpu_torch.kernels import sort as ksort
+    from kmers_tpu_torch.parallel import pipeline
+
+    rs = np.random.RandomState(seed + 8)
+    res = stats["kernels"]
+    reads = torch.from_numpy(seeded_reads(rs, *SIZES["window"])).to(DEVICE)
+    canon, valid = pipeline.canonical_kmers(reads, 31)
+    canon, valid = canon.reshape(-1), valid.reshape(-1)
+    (whi, wlo), wvalid = pipeline.canonical_kmers_wide(reads, 63)
+    odd = SIZES["odd"]
+    notes = []
+    for name, fn, planes in (
+            ("segment_count_keys", kct.segment_count_keys,
+             u64.fold_invalid(canon, valid)),
+            ("segment_count_keys_wide", kct.segment_count_keys_wide,
+             u128.fold_invalid(whi.reshape(-1), wlo.reshape(-1),
+                               wvalid.reshape(-1)))):
+        plain = lambda ps: kct.segment_count_plain(ps, 64, 1 << 14)
+        err = max(max_abs_err(fn(*ps), plain(ps))
+                  for ps in (planes, tuple(p[:odd] for p in planes)))
+        res[name] = dict(
+            max_abs_err=err, ms=time_ms(lambda: fn(*planes)),
+            plain_ms=time_ms(lambda: plain(planes)),
+            bound_ms=bound_ms(nbytes(*planes, *fn(*planes))),
+            library_ms=None)
+        notes.append(f"{name} [{planes[0].shape[0]}] {res[name]['ms']:.3f} "
+                     f"ms (plain {res[name]['plain_ms']:.3f})")
+
+    # K11: the compact batch's sort keys (word | invalid flag), then 2^24
+    # seeded keys below 2^62, a quarter duplicated, a tenth flagged
+    key = canon | torch.where(valid, 0, u64.SIGN_BIT)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    n = SIZES["sort_big"]
+    big = torch.randint(0, 1 << 62, (n,), device=DEVICE, generator=g)
+    big[: n // 4] = big[n // 2: n // 2 + n // 4]
+    big = torch.where(torch.rand(n, device=DEVICE, generator=g) < 0.1,
+                      big | u64.SIGN_BIT, big)
+    times = {}
+    err = 0
+    for label, words in (("2^20", key), ("2^24", big), (str(odd), big[:odd])):
+        hi, lo = u64.split_word(words)
+        err = max(err, max_abs_err(ksort.radix_sort_u64(hi, lo),
+                                   ksort.radix_sort_u64_plain(hi, lo)))
+        flipped = u64.to_unsigned_order(words)
+        times[label] = (time_ms(lambda: ksort.radix_sort_u64(hi, lo)),
+                        time_ms(lambda: ksort.radix_sort_u64_plain(hi, lo)),
+                        time_ms(lambda: torch.sort(flipped)),
+                        bound_ms(2 * nbytes(hi, lo)))
+    ms, plain_ms, library_ms, bound = times["2^20"]
+    res["radix_sort_u64"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bound, library_ms=library_ms,
+                                 sizes=times)
+    for name in ("segment_count_keys", "segment_count_keys_wide",
+                 "radix_sort_u64"):
+        if res[name]["max_abs_err"]:
+            raise AssertionError(f"{name}: kernel differs from its plain "
+                                 f"version (max_abs_err "
+                                 f"{res[name]['max_abs_err']})")
+    notes += [f"radix_sort_u64 [{label}] {t[0]:.3f} ms (plain {t[1]:.3f}, "
+              f"torch.sort {t[2]:.3f}, bound {t[3]:.4f})"
+              for label, t in times.items()]
+    say("phase 8 sort kernels: bit-exact vs plain; " + "; ".join(notes))
+
+
+def _fold_batches(batches, count, merge, empty, capacity: int, k: int,
+                  merge_every: int = 16):
+    """Fold per-batch tables into one with `merge` every `merge_every`
+    batches; returns (table, batches, kmers, dropped distinct)."""
+    table, pending, n, kmers, dropped = empty, [], 0, 0, 0
+    for batch in batches:
+        res = count(batch)
+        pending.append(res.table)
+        kmers += int(res.metrics["kmers_emitted"])
+        n += 1
+        if len(pending) == merge_every:
+            table, du, _ = merge(table, pending, capacity, max_k=k)
+            dropped += du
+            pending = []
+    if pending:
+        table, du, _ = merge(table, pending, capacity, max_k=k)
+        dropped += du
+    return table, n, kmers, dropped
+
+
+def _same_table(got, want) -> bool:
+    import torch
+
+    return (got.n_unique == want.n_unique
+            and torch.equal(table_keys(got), table_keys(want))
+            and torch.equal(got.counts[:got.n_unique],
+                            want.counts[:want.n_unique]))
+
+
+def phase_count_forms(stats: dict, workdir: str) -> None:
+    """Phase 9: the 1M-read set through count_reads(_wide)'s counted forms,
+    each batch's table folded with _merge_bounded(_wide) every 16 batches
+    at capacity 2^24; each table must be phase 3's / phase 4's, and each
+    run must launch its kernel (K11 for the compact form, K10 narrow and
+    wide for the run-length forms)."""
+    import torch
+
+    from kmers_tpu_torch import kernels
+    from kmers_tpu_torch.io import fastx
+    from kmers_tpu_torch.parallel import count as count_ops
+    from kmers_tpu_torch.parallel import pipeline, stream
+
+    fastq = os.path.join(workdir, "ecoli_1m.fastq")
+    capacity, batch, length = 1 << 24, 4096, 256
+    runs = (("compact", 31, True, "radix_sort_u64"),
+            ("runlength", 31, False, "segment_count_keys"),
+            ("runlength", 63, False, "segment_count_keys_wide"))
+    for form, k, compact, kernel in runs:
+        wide = k > 32
+        count = pipeline.count_reads_wide if wide else pipeline.count_reads
+        empty = (count_ops.empty_table_wide if wide
+                 else count_ops.empty_table)(capacity, DEVICE)
+        merge = stream._merge_bounded_wide if wide else stream._merge_bounded
+        rows = fastx.prefetch(fastx.read_kmer_batches(fastq, k=k, batch=batch,
+                                                      length=length))
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        table, n, kmers, dropped = _fold_batches(
+            (torch.from_numpy(r).to(DEVICE) for r in rows),
+            lambda r: count(r, k, compact=compact), merge, empty, capacity, k)
+        sync()
+        wall = time.time() - t0
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        name = f"forms_{form}_k{k}"
+        ref = stream.StreamingCounter.load(
+            os.path.join(workdir, f"ecoli_1m_k{k}.npz"), device=DEVICE)
+        if dropped or not _same_table(table, ref.table) or kmers != ref.kmers:
+            raise AssertionError(f"{name}: table differs from phase "
+                                 f"{4 if wide else 3}'s")
+        if launches[kernel] == 0:
+            raise AssertionError(f"{name}: {kernel} was not launched")
+        stats["launches"][kernel] = launches[kernel]
+        stats[name] = dict(wall_s=wall, batches=n, kmers=kmers,
+                           kmers_per_s=kmers / wall, peak_bytes=peak,
+                           launches=launches)
+        say(f"phase 9 {name}: {n} batches, {kmers} kmers in {wall:.3f}s = "
+            f"{kmers / wall:.4g} kmers/s, peak device memory "
+            f"{peak / 2**20:.1f} MiB; table == phase {4 if wide else 3}'s; "
+            f"launches { {m: c for m, c in launches.items() if c} }")
+
+
+def phase_sharded_compact(stats: dict, workdir: str) -> None:
+    """Phase 11: four shards on the one card.  make_sharded_counter's
+    compact per-shard tables over the 1M-read set (packed), each batch's
+    global_table folded as in phase 9, must give phase 3's table; and
+    make_sharded_minimizer_counter (k=31, w=11) on one [4096, 256] batch
+    must give an independent count of its minimizer words.  Both launch
+    K11 (each shard's count_words) and route without overflow."""
+    import numpy as np
+    import torch
+
+    from kmers_tpu_torch import kernels
+    from kmers_tpu_torch.core import u64
+    from kmers_tpu_torch.io import fastx
+    from kmers_tpu_torch.ops import hash as hash_ops
+    from kmers_tpu_torch.ops import minimizer as mini_ops
+    from kmers_tpu_torch.parallel import count as count_ops
+    from kmers_tpu_torch.parallel import pipeline, stream
+    from kmers_tpu_torch.parallel.mesh import make_mesh
+
+    fastq = os.path.join(workdir, "ecoli_1m.fastq")
+    capacity, batch, length, shards = 1 << 24, 4096, 256, 4
+    mesh = make_mesh(devices=[DEVICE] * shards)
+    step = pipeline.make_sharded_counter(mesh, 31, route_capacity=1 << 16,
+                                         packed=True)
+    overflow = []
+
+    def count(wv):
+        res = step(*(torch.from_numpy(a.view(np.int32)).to(DEVICE)
+                     for a in wv))
+        overflow.append(res.metrics["route_overflow"])
+        return pipeline.CountResult(pipeline.global_table(res), res.metrics)
+
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    table, n, kmers, dropped = _fold_batches(
+        fastx.prefetch(fastx.read_packed_batches(fastq, k=31, batch=batch,
+                                                 length=length)),
+        count, stream._merge_bounded, count_ops.empty_table(capacity, DEVICE),
+        capacity, 31)
+    sync()
+    wall = time.time() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ref = stream.StreamingCounter.load(
+        os.path.join(workdir, "ecoli_1m_k31.npz"), device=DEVICE)
+    if int(sum(int(o) for o in overflow)) or dropped:
+        raise AssertionError("sharded compact: routing overflow or drops")
+    if not _same_table(table, ref.table) or kmers != ref.kmers:
+        raise AssertionError("sharded compact: table differs from phase 3's")
+    if launches["radix_sort_u64"] == 0:
+        raise AssertionError("sharded compact: radix_sort_u64 not launched")
+    stats["sharded_compact_d4"] = dict(wall_s=wall, kmers=kmers,
+                                       kmers_per_s=kmers / wall,
+                                       peak_bytes=peak, launches=launches)
+
+    rows = next(iter(fastx.read_kmer_batches(fastq, k=31, batch=batch,
+                                             length=length)))
+    reads = torch.from_numpy(rows).to(DEVICE)
+    mstep = pipeline.make_sharded_minimizer_counter(
+        mesh, 31, 11, route_capacity=1 << 16, route_passes=2)
+    sync()
+    kernels.reset_launch_counts()
+    res = mstep(reads)
+    got = pipeline.global_table(res)
+    sync()
+    m_launches = kernels.launch_counts()
+    mm = mini_ops.minimizer_stream(reads, 31, 11, hash_ops.mix_hash_fn(0))
+    keys, counts = torch.unique(u64.to_unsigned_order(mm.word[mm.valid]),
+                                return_counts=True)
+    nu = got.n_unique
+    if (int(res.metrics["route_overflow"]) or nu != keys.shape[0]
+            or not torch.equal(u64.to_unsigned_order(table_keys(got)), keys)
+            or not torch.equal(got.counts[:nu].to(torch.int64), counts)):
+        raise AssertionError("sharded minimizer counter differs from the "
+                             "independent count of its minimizer words")
+    if m_launches["radix_sort_u64"] == 0:
+        raise AssertionError("sharded minimizer counter: radix_sort_u64 not "
+                             "launched")
+    say(f"phase 11 sharded compact, {shards} shards on one card: "
+        f"make_sharded_counter {kmers} kmers in {wall:.3f}s = "
+        f"{kmers / wall:.4g} kmers/s, peak {peak / 2**20:.1f} MiB, overflow "
+        f"0, table == phase 3's, launches "
+        f"{ {m: c for m, c in launches.items() if c} }; "
+        f"make_sharded_minimizer_counter k=31 w=11: {nu} minimizer words "
+        f"({int(counts.sum())} kmers) == independent count, launches "
+        f"{ {m: c for m, c in m_launches.items() if c} }")
+
+
 def _top_and_absent_queries(path: str) -> list:
     """The most frequent k-mer of a saved table as a string, and AAA..A."""
     import numpy as np
@@ -714,11 +1016,17 @@ def main(argv=None) -> int:
     stats = {"kernels": {}, "launches": {}}
     phase_device(stats)
     phase_kernels(stats, args.seed)
-    phase_end_to_end(stats, args.seed, args.workdir, 31)
-    phase_end_to_end(stats, args.seed, args.workdir, 63)
+    phase_end_to_end(stats, args.seed, args.workdir, 31, 3)
+    phase_end_to_end(stats, args.seed, args.workdir, 63, 4)
     phase_reference(stats, args.workdir)
     phase_minimizer(stats, args.seed)
     phase_sharded(stats, args.workdir)
+    phase_sort_kernels(stats, args.seed)
+    phase_count_forms(stats, args.workdir)
+    for k in (32, 64):
+        phase_end_to_end(stats, args.seed, args.workdir, k, 10)
+    phase_reference(stats, args.workdir, ks=(32, 64), phase=10)
+    phase_sharded_compact(stats, args.workdir)
 
     kernels = []
     for name, r in stats["kernels"].items():
@@ -729,7 +1037,8 @@ def main(argv=None) -> int:
                             replaces=replaces,
                             launches=stats["launches"][name],
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
-                            plain_ms=r["plain_ms"]))
+                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                            bound_by="bytes", library_ms=r["library_ms"]))
     say(nvidia_smi())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -6,10 +6,11 @@ code is PyTorch; each Pallas kernel of the ported path is a hand-written
 CUDA kernel under kernels/csrc, built with nvcc on first use.  Imports
 torch and numpy only, never JAX.
 
-Ported so far: the single-device ``count`` path for k <= 31 and for
-33 <= k <= 63 (128-bit keys), the hash emitters, minimizers, and
-sharded counting at k <= 31 over a one-process mesh (hash or minimizer
-partition).
+Ported so far: the single-device ``count`` path for 1 <= k <= 64
+(128-bit keys past k = 32), with the streaming unit tables and the
+sort-based compact and run-length tables; the hash emitters; minimizers;
+and sharded counting at k <= 31 over a one-process mesh (hash or
+minimizer partition, and minimizer bucketing).
 """
 
 from .parallel import stream  # noqa: F401  (kmers_tpu_torch.stream.npz_digest)

@@ -8,10 +8,11 @@ Commands (the same as ``python -m kmers_tpu``):
 
 Every command takes --device (default cuda).  A cuda device without a
 card is an error, never a silent fall back to the CPU.  This port counts
-1 <= k <= 31 and 33 <= k <= 63 (128-bit keys) on one device, and
+1 <= k <= 64 on one device (128-bit keys past k = 32; k = 32 and k = 64,
+which fill every key bit, through the run-length tables), and
 1 <= k <= 31 sharded over --devices N (N GPUs; N shards on the CPU with
---device cpu), hash- or minimizer-partitioned; k = 32, k = 64 and
---devices > 1 at k > 31 exit 2 with an error.
+--device cpu), hash- or minimizer-partitioned; --devices > 1 at k > 31
+exits 2 with an error.
 """
 
 from __future__ import annotations
@@ -229,9 +230,7 @@ def _cmd_count(args) -> int:
 
 
 def _cmd_query(args) -> int:
-    import torch
-
-    from .core import u128
+    from .core import u64, u128
     from .ops.kmer import canonical_from_string, canonical_from_string_wide
     from .parallel.stream import StreamingCounter
 
@@ -255,8 +254,7 @@ def _cmd_query(args) -> int:
         words.append((q, canon))
     if words:
         ints = [w for _, w in words]
-        qa = (u128.from_ints(ints) if sc.wide
-              else torch.tensor(ints, dtype=torch.int64))
+        qa = u128.from_ints(ints) if sc.wide else u64.from_ints(ints)
         counts = sc.lookup(qa).cpu().tolist()
         for (q, _), c in zip(words, counts):
             print(f"{q}\t{int(c)}")
@@ -302,7 +300,7 @@ def main(argv=None) -> int:
             "counts are then lower bounds.\n"))
     c.add_argument("input", help="FASTA/FASTQ path")
     c.add_argument("-k", type=int, required=True,
-                   help="k-mer length (1..31 and 33..63 in this port)")
+                   help="k-mer length (1..64)")
     c.add_argument("-o", "--output", required=True, help="output .npz table")
     c.add_argument("--capacity", type=int, default=1 << 22,
                    help="max distinct kmers the table can hold (default 4M)")

@@ -12,17 +12,17 @@ import dataclasses
 
 NARROW_MAX_K = 31      # one 64-bit key with a spare flag bit
 MAX_K = 63             # two 64-bit keys with a spare flag bit
+WORD_K = 32            # the most bases one 64-bit word holds
+MAX_WIDE_K = 64        # the most bases a 128-bit word holds
 
 
 def check_k(k: int) -> None:
-    """Raise ValueError unless the port counts this k: 1 <= k <= 31 (one
-    64-bit key) or 33 <= k <= 63 (a 128-bit key).  Counting folds the
-    invalid flag into the key's top bit, which k = 32 and k = 64 fill."""
-    if not (1 <= k <= NARROW_MAX_K or NARROW_MAX_K + 2 <= k <= MAX_K):
-        raise ValueError(
-            f"k={k} is not ported: this port counts 1 <= k <= {NARROW_MAX_K} "
-            f"and {NARROW_MAX_K + 2} <= k <= {MAX_K} (k = 32 and k = 64 "
-            "need the run-length path)")
+    """Raise ValueError unless the port counts this k: 1 <= k <= 32 (one
+    64-bit key) or 33 <= k <= 64 (a 128-bit key).  k = 32 and k = 64 fill
+    every key bit, so no invalid flag folds in: they count through the
+    run-length form (KmerSpec.aggregate)."""
+    if not 1 <= k <= MAX_WIDE_K:
+        raise ValueError(f"k={k} is outside the counted range 1..{MAX_WIDE_K}")
 
 
 def check_k_range(k: int, lo: int, hi: int, what: str) -> None:
@@ -38,7 +38,7 @@ class KmerSpec:
     """k-mer configuration.
 
     Attributes:
-      k: k-mer length in bases (1..64; this port counts k != 32, 64).
+      k: k-mer length in bases (1..64).
       w: minimizer width (None if minimizers are unused).
       seed: seed of the mixer hash (routing / minimizer order).
     """
@@ -62,5 +62,5 @@ class KmerSpec:
     def aggregate(self) -> str:
         """Per-batch table form: "unit" whenever the spare flag bit exists
         (k != 32, 64), else the run-length fallback."""
-        return ("unit" if (self.k <= 31 or 33 <= self.k <= 63)
-                else "runlength")
+        return ("unit" if (self.k <= NARROW_MAX_K
+                           or WORD_K < self.k <= MAX_K) else "runlength")

@@ -75,6 +75,17 @@ def fold_invalid(words: torch.Tensor, valid: torch.Tensor):
     return split_word(torch.where(valid, words, SIGN_BIT))
 
 
+def from_ints(values, device=None) -> torch.Tensor:
+    """Python ints (unsigned 64-bit) -> int64 tensor of the same bits."""
+    return torch.tensor([v - (1 << 64) if v >> 63 else v for v in values],
+                        dtype=torch.int64, device=device)
+
+
+def to_ints(w: torch.Tensor) -> list:
+    """int64 tensor -> flat list of unsigned Python ints."""
+    return [v & MASK64 for v in w.reshape(-1).tolist()]
+
+
 def to_unsigned_order(w: torch.Tensor) -> torch.Tensor:
     """Flip bit 63 so signed order equals unsigned order (an involution)."""
     return w ^ SIGN_BIT

@@ -15,7 +15,8 @@ import torch
 KERNELS = ("pack_canonical_keys_packed", "pack_canonical_keys",
            "merge_sorted", "compress_flagged", "pack_canonical_hash",
            "merge_sorted_wide", "pack_canonical_keys_wide",
-           "pack_canonical_hash_wide", "minimizer_kernel")
+           "pack_canonical_hash_wide", "minimizer_kernel",
+           "segment_count_keys", "segment_count_keys_wide", "radix_sort_u64")
 
 _launches = dict.fromkeys(KERNELS, 0)
 

@@ -23,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import u64, u128
-from ..core.spec import NARROW_MAX_K, check_k_range
+from ..core.spec import WORD_K, check_k_range
 from . import encoding
 
 
@@ -201,8 +201,10 @@ _CODE = {"A": 0, "C": 1, "G": 2, "T": 3}
 
 def canonical_from_string(s: str) -> int:
     """Canonical word of one k-mer string (any case) as a Python int.
-    Raises ValueError on a non-ACGT character or a length outside 1..31."""
-    check_k_range(len(s), 1, NARROW_MAX_K, "canonical_from_string")
+    Raises ValueError on a non-ACGT character or a length outside 1..32
+    (at 32 the word may exceed 2^63: u64.from_ints makes the int64 query
+    of it)."""
+    check_k_range(len(s), 1, WORD_K, "canonical_from_string")
     return _canonical_int(s)
 
 

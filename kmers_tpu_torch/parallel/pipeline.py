@@ -1,20 +1,30 @@
 """Per-batch counting (counterpart of ``kmers_tpu/parallel/pipeline.py``).
 
-"unit" aggregation only: a batch becomes raw folded canonical keys, one
-occurrence per valid lane, with no per-batch sort (the deferred
-consolidation sorts every pending lane anyway).
+A batch becomes one table, in the form `aggregate` names (default from
+`compact`, as in the JAX package):
 
-  single device   count_reads(_packed) (k <= 31, window kernels K2 / K1)
-                  and count_reads(_packed)_wide (33 <= k <= 63, K7)
+  "compact"    sorted, compacted CountTable(Wide) (count.count_words)
+  "runlength"  counts at run starts: K10's per-segment layout at k <= 31 /
+               k <= 63, globally sorted with duplicates at k = 32 / 64
+  "unit"       raw folded canonical keys, one occurrence per valid lane
+               (k <= 31, 33 <= k <= 63), no per-batch sort: what the
+               streaming counter consolidates.
+
+  single device   count_reads(_packed) (k <= 32; unit: window kernels K2 /
+                  K1) and count_reads(_packed)_wide (33 <= k <= 64; unit:
+                  K7, packed plain).  The compact and run-length forms
+                  take the plain windows of ops.kmer, as the JAX package
+                  does off its unit kernels.
   mesh, k <= 31   make_sharded_counter: hash-prefix routing of every
                   k-mer (parallel.route.route);
                   make_superkmer_counter: minimizer partition, runs of
                   k-mers that share a minimizer travel as one lane of
-                  packed bases (route_payload), selected by kernel K9.
+                  packed bases (route_payload), selected by kernel K9;
+                  make_sharded_minimizer_counter: each k-mer's minimizer
+                  routed to its owner and counted (BASELINE config 4).
 
-A sharded step returns one unit table per shard (on its device) and its
-metrics summed over the shards on the mesh's first device.  The
-"compact" and "runlength" forms (k = 32, 64) are not ported yet.
+A sharded step returns one table per shard (on its device) and its
+metrics summed over the shards on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -24,20 +34,25 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from ..core import u64
-from ..core.spec import MAX_K, NARROW_MAX_K, check_k_range
+from ..core.spec import (MAX_K, MAX_WIDE_K, NARROW_MAX_K, WORD_K, KmerSpec,
+                         check_k_range)
 from ..kernels import merge as kmerge
 from ..kernels import minimizer as kmini
 from ..kernels import window as kwin
 from ..kernels import window_wide as kww
 from ..ops import encoding, kmer
+from ..ops import hash as hash_ops
+from ..ops import minimizer as mini_ops
 from . import count as count_ops
 from . import mesh as mesh_ops
 from . import route as route_ops
-from .count import UnitTable, UnitTableWide, unit_table_wide
+from .count import UnitTable, UnitTableWide
+
+AGGREGATES = ("compact", "runlength", "unit")
 
 
 class CountResult(NamedTuple):
-    table: object        # a unit table, or a list of them (one per shard)
+    table: object        # a table, or a list of them (one per shard)
     metrics: Dict[str, torch.Tensor]
 
 
@@ -51,46 +66,136 @@ def _count_metrics(n_reads: int, n_win: int,
     }
 
 
-def count_reads(reads: torch.Tensor, k: int) -> CountResult:
-    """[B, L] uint8 ASCII reads -> UnitTable of folded canonical keys
-    (window kernel K2)."""
-    kh, kl = kwin.pack_canonical_keys(reads, k)
-    emitted = (kh >= 0).sum()
-    return CountResult(UnitTable(kh, kl), _count_metrics(
-        reads.shape[0], reads.shape[-1] - k + 1, emitted))
+def _resolve_aggregate(compact: bool, aggregate: Optional[str]) -> str:
+    if aggregate is None:
+        return "compact" if compact else "runlength"
+    if aggregate not in AGGREGATES:
+        raise ValueError(f"aggregate must be one of {AGGREGATES}, got "
+                         f"{aggregate!r}")
+    return aggregate
+
+
+def _resolve_k(k, spec: Optional[KmerSpec]) -> int:
+    """`k` may be an int or a KmerSpec, or None with `spec` given."""
+    if isinstance(k, KmerSpec):
+        if spec is not None and spec is not k:
+            raise ValueError("pass the KmerSpec once, as k or as spec")
+        return k.k
+    if spec is not None:
+        if k is not None and k != spec.k:
+            raise ValueError(f"k={k} contradicts spec.k={spec.k}")
+        return spec.k
+    if k is None:
+        raise TypeError("pass k or spec")
+    return k
+
+
+def canonical_kmers(reads: torch.Tensor, k: int):
+    """[B, L] uint8 reads -> (canonical int64 words [B, L], valid [B, L])."""
+    win = kmer.kmer_windows(reads, k)
+    return kmer.canonical_word(win.fw, win.rc), win.valid
+
+
+def canonical_kmers_wide(reads: torch.Tensor, k: int):
+    """canonical_kmers for 33 <= k <= 64: ((hi, lo) words, valid)."""
+    win = kmer.kmer_windows_wide(reads, k)
+    return kmer.canonical_word_wide(win.fw, win.rc), win.valid
+
+
+def _unit_result(keys: tuple, n_reads: int, n_win: int) -> CountResult:
+    """A unit table from a window kernel's folded key planes."""
+    table = UnitTable(*keys) if len(keys) == 2 else UnitTableWide(tuple(keys))
+    return CountResult(table, _count_metrics(n_reads, n_win,
+                                             (keys[0] >= 0).sum()))
+
+
+def _counted(count_words, canon, valid, n_reads: int, n_win: int, k: int,
+             mode: str) -> CountResult:
+    """The compact or run-length table of canonical words."""
+    return CountResult(
+        count_words(canon, valid, max_k=k, compact=mode == "compact"),
+        _count_metrics(n_reads, n_win, valid.sum()))
+
+
+def count_reads(reads: torch.Tensor, k=None, compact: bool = True,
+                aggregate: Optional[str] = None,
+                spec: Optional[KmerSpec] = None) -> CountResult:
+    """[B, L] uint8 ASCII reads, k <= 32 -> one table of the batch
+    (kmers_tpu/parallel/pipeline.py:107).  "unit" (k <= 31) runs the
+    window kernel K2; the other forms the plain windows and count_words
+    (K11 for "compact", K10 for "runlength" at k <= 31)."""
+    k = _resolve_k(k, spec)
+    mode = _resolve_aggregate(compact, aggregate)
+    n_win = reads.shape[-1] - k + 1
+    if mode == "unit":
+        check_k_range(k, 1, NARROW_MAX_K, "count_reads (unit)")
+        return _unit_result(kwin.pack_canonical_keys(reads, k),
+                            reads.shape[0], n_win)
+    check_k_range(k, 1, WORD_K, "count_reads")
+    return _counted(count_ops.count_words, *canonical_kmers(reads, k),
+                    reads.shape[0], n_win, k, mode)
 
 
 def count_reads_packed(words: torch.Tensor, validbits: torch.Tensor,
-                       k: int) -> CountResult:
+                       k=None, compact: bool = True,
+                       aggregate: Optional[str] = None,
+                       spec: Optional[KmerSpec] = None) -> CountResult:
     """count_reads over packed ingest ([B, L/16] code words + [B, L/32]
-    validity bitmaps, int32) with window kernel K1."""
-    kh, kl = kwin.pack_canonical_keys_packed(words, validbits, k)
-    emitted = (kh >= 0).sum()
-    return CountResult(UnitTable(kh, kl), _count_metrics(
-        words.shape[0], words.shape[-1] * 16 - k + 1, emitted))
+    validity bitmaps, int32); "unit" runs window kernel K1
+    (kmers_tpu/parallel/pipeline.py:153)."""
+    k = _resolve_k(k, spec)
+    mode = _resolve_aggregate(compact, aggregate)
+    n_win = words.shape[-1] * 16 - k + 1
+    if mode == "unit":
+        check_k_range(k, 1, NARROW_MAX_K, "count_reads_packed (unit)")
+        return _unit_result(kwin.pack_canonical_keys_packed(words, validbits,
+                                                            k),
+                            words.shape[0], n_win)
+    check_k_range(k, 1, WORD_K, "count_reads_packed")
+    win = kmer.kmer_windows_packed(words, validbits, k)
+    return _counted(count_ops.count_words,
+                    kmer.canonical_word(win.fw, win.rc), win.valid,
+                    words.shape[0], n_win, k, mode)
 
 
-def count_reads_wide(reads: torch.Tensor, k: int) -> CountResult:
-    """[B, L] uint8 ASCII reads, 33 <= k <= 63 -> UnitTableWide of folded
-    canonical keys (wide window kernel K7; kmers_tpu/parallel/
-    pipeline.py:363)."""
-    keys = kww.pack_canonical_keys_wide(reads, k)
-    emitted = (keys[0] >= 0).sum()
-    return CountResult(UnitTableWide(keys), _count_metrics(
-        reads.shape[0], reads.shape[-1] - k + 1, emitted))
+def count_reads_wide(reads: torch.Tensor, k=None, compact: bool = True,
+                     aggregate: Optional[str] = None,
+                     spec: Optional[KmerSpec] = None) -> CountResult:
+    """[B, L] uint8 ASCII reads, 33 <= k <= 64 -> one table of 128-bit
+    keys (kmers_tpu/parallel/pipeline.py:363); "unit" (k <= 63) runs the
+    wide window kernel K7."""
+    k = _resolve_k(k, spec)
+    mode = _resolve_aggregate(compact, aggregate)
+    n_win = reads.shape[-1] - k + 1
+    if mode == "unit":
+        check_k_range(k, WORD_K + 1, MAX_K, "count_reads_wide (unit)")
+        return _unit_result(kww.pack_canonical_keys_wide(reads, k),
+                            reads.shape[0], n_win)
+    check_k_range(k, WORD_K + 1, MAX_WIDE_K, "count_reads_wide")
+    return _counted(count_ops.count_words_wide,
+                    *canonical_kmers_wide(reads, k), reads.shape[0], n_win,
+                    k, mode)
 
 
 def count_reads_packed_wide(words: torch.Tensor, validbits: torch.Tensor,
-                            k: int) -> CountResult:
+                            k=None, compact: bool = True,
+                            aggregate: Optional[str] = None,
+                            spec: Optional[KmerSpec] = None) -> CountResult:
     """count_reads_wide over packed ingest.  The packed wide windows have
     no kernel in the JAX package either: they are ops.kmer's torch code on
     every device (kmers_tpu/parallel/pipeline.py:398)."""
-    check_k_range(k, 33, MAX_K, "count_reads_packed_wide")
+    k = _resolve_k(k, spec)
+    mode = _resolve_aggregate(compact, aggregate)
+    check_k_range(k, WORD_K + 1, MAX_K if mode == "unit" else MAX_WIDE_K,
+                  f"count_reads_packed_wide ({mode})")
     win = kmer.kmer_windows_packed_wide(words, validbits, k)
-    table = unit_table_wide(kmer.canonical_word_wide(win.fw, win.rc),
-                            win.valid)
-    return CountResult(table, _count_metrics(
-        words.shape[0], win.n_windows, win.valid.sum()))
+    canon = kmer.canonical_word_wide(win.fw, win.rc)
+    if mode == "unit":
+        return CountResult(count_ops.unit_table_wide(canon, win.valid),
+                           _count_metrics(words.shape[0], win.n_windows,
+                                          win.valid.sum()))
+    return _counted(count_ops.count_words_wide, canon, win.valid,
+                    words.shape[0], win.n_windows, k, mode)
 
 
 # -- sharded counting: hash-prefix routing -------------------------------------
@@ -100,19 +205,26 @@ def _psum(values, device) -> torch.Tensor:
     return mesh_ops.gather(values, device).sum()
 
 
-def _check_unit(aggregate: str, k: int, what: str) -> None:
-    if aggregate != "unit":
-        raise NotImplementedError(
-            f"{what}: aggregate={aggregate!r} needs count_words, which is "
-            "not ported; only 'unit' is")
+def _check_sharded(aggregate: str, k: int, what: str) -> None:
+    _resolve_aggregate(True, aggregate)
     check_k_range(k, 1, NARROW_MAX_K, what)
 
 
+def _shard_table(words: torch.Tensor, valid: torch.Tensor, k: int,
+                 aggregate: str):
+    """A shard's table of its received words: the lanes themselves for
+    "unit", else count_words' compact table (K11's sort on the card), as
+    the JAX package's sharded tails do for "compact" and "runlength"."""
+    if aggregate == "unit":
+        return count_ops.unit_table(words, valid)
+    return count_ops.count_words(words, valid, max_k=k)
+
+
 def _sharded_count_tail(canon, valid, n_reads: int, n_win: int, mesh,
-                        capacity: int, seed: int,
-                        passes: int) -> CountResult:
+                        k: int, capacity: int, seed: int, passes: int,
+                        aggregate: str) -> CountResult:
     """Shared tail of the sharded count bodies: route, then each shard's
-    received lanes are its unit table."""
+    table of the lanes it received."""
     routed = route_ops.route(canon, valid, mesh, capacity, seed,
                              passes=passes)
     dev = mesh[0]
@@ -126,75 +238,66 @@ def _sharded_count_tail(canon, valid, n_reads: int, n_win: int, mesh,
         # 8 B word + 1 B mask per received lane
         "route_bytes": sum(r.words.numel() for r in routed) * 9,
     }
-    return CountResult([count_ops.unit_table(r.words, r.valid)
+    return CountResult([_shard_table(r.words, r.valid, k, aggregate)
                         for r in routed], metrics)
 
 
-def _windows_tail(wins, n_reads: int, mesh, capacity: int, seed: int,
-                  passes: int) -> CountResult:
+def _windows_tail(wins, n_reads: int, **kw) -> CountResult:
     """Each shard's windows -> their canonical words -> the tail."""
     return _sharded_count_tail(
         [kmer.canonical_word(w.fw, w.rc) for w in wins],
-        [w.valid for w in wins], n_reads, wins[0].n_windows, mesh, capacity,
-        seed, passes)
+        [w.valid for w in wins], n_reads, wins[0].n_windows, **kw)
 
 
-def _sharded_count_body(reads_local, *, mesh, k: int, capacity: int,
-                        seed: int, passes: int) -> CountResult:
+def _sharded_count_body(reads_local, **kw) -> CountResult:
     """Each shard's [B/D, L] reads -> plain windows -> routed -> owned
-    unit tables."""
-    return _windows_tail([kmer.kmer_windows(r, k) for r in reads_local],
-                         sum(r.shape[0] for r in reads_local), mesh,
-                         capacity, seed, passes)
+    tables."""
+    return _windows_tail([kmer.kmer_windows(r, kw["k"]) for r in reads_local],
+                         sum(r.shape[0] for r in reads_local), **kw)
 
 
-def _sharded_count_body_packed(words_local, validbits_local, *, mesh,
-                               k: int, capacity: int, seed: int,
-                               passes: int) -> CountResult:
+def _sharded_count_body_packed(words_local, validbits_local,
+                               **kw) -> CountResult:
     """_sharded_count_body over each shard's packed ingest."""
     return _windows_tail(
-        [kmer.kmer_windows_packed(w, v, k)
+        [kmer.kmer_windows_packed(w, v, kw["k"])
          for w, v in zip(words_local, validbits_local)],
-        sum(w.shape[0] for w in words_local), mesh, capacity, seed, passes)
+        sum(w.shape[0] for w in words_local), **kw)
 
 
 def make_sharded_counter(mesh, k: int, *, route_capacity: int, seed: int = 0,
                          route_passes: int = 1, packed: bool = False,
-                         aggregate: str = "unit"):
+                         aggregate: str = "compact"):
     """A sharded counting step over `mesh` (k <= 31): fn(reads [B, L]
     uint8), or fn(words [B, L/16], validbits [B, L/32]) with packed=True,
-    -> CountResult with one unit table per shard, holding only the k-mers
-    that shard owns, and metrics summed over the shards.  B must split
-    evenly over the mesh.  The windows are the plain ones of ops.kmer on
-    every device, as in the JAX package (pipeline.py:224-243).
+    -> CountResult with one table per shard, holding only the k-mers that
+    shard owns (compact by default, K11's sort on the card; the routed
+    lanes themselves for aggregate="unit"), and metrics summed over the
+    shards.  B must split evenly over the mesh.  The windows are the
+    plain ones of ops.kmer on every device, as in the JAX package
+    (pipeline.py:224-243).
 
     route_passes > 1 re-routes bucket overflow in extra exchanges (exact
     while every destination load <= passes * capacity); what still
     overflows is counted in metrics["route_overflow"]."""
-    _check_unit(aggregate, k, "make_sharded_counter")
+    _check_sharded(aggregate, k, "make_sharded_counter")
     body = _sharded_count_body_packed if packed else _sharded_count_body
 
     def fn(*batch) -> CountResult:
         return body(*(mesh_ops.batch_sharding(x, mesh) for x in batch),
                     mesh=mesh, k=k, capacity=route_capacity, seed=seed,
-                    passes=route_passes)
+                    passes=route_passes, aggregate=aggregate)
 
     return fn
 
 
 def global_table(result: CountResult) -> count_ops.CountTable:
-    """One key-sorted CountTable (capacity = all received lanes) from a
-    sharded result's per-shard unit tables, on the first shard's device:
-    one sort of every lane, then the streaming merge (K3, K4) into an
-    empty table.  It re-counts across shards, so it is exact for the
-    minimizer partition too, whose shards are not key-disjoint."""
-    tables = result.table
-    dev = tables[0].keys_hi.device
-    s_hi, s_lo = count_ops.sort_unit_keys(
-        mesh_ops.gather([t.keys_hi for t in tables], dev),
-        mesh_ops.gather([t.keys_lo for t in tables], dev))
-    return count_ops.merge_table_with_sorted_units(
-        count_ops.empty_table(0, dev), s_hi, s_lo)
+    """One key-sorted CountTable from a sharded result's per-shard tables
+    of any form, on the first shard's device: merge_many's weighted
+    re-count (kmers_tpu/parallel/pipeline.py:299-313).  It re-counts
+    across shards, so it is exact for the minimizer partition too, whose
+    shards are not key-disjoint."""
+    return count_ops.merge_many(result.table)
 
 
 # -- sharded counting: super-k-mers (minimizer partition) ----------------------
@@ -327,10 +430,12 @@ def make_superkmer_counter(mesh, k: int, w: int, *, route_capacity: int,
                            aggregate: str = "unit"):
     """A sharded counting step with super-k-mer routing (k <= 31), the
     `--partition minimizer` pipeline: fn(reads [B, L] uint8) ->
-    CountResult with one unit table per shard ([passes * D * C, k-w+1]
-    lanes) and metrics: reads, kmers_emitted, windows_skipped, superkmers
-    (run starts), route_overflow (in K-MERS: the weight of the dropped
-    runs, prefilter drops included), route_rerouted and route_bytes.
+    CountResult with one table per shard (unit, of [passes * D * C, k-w+1]
+    lanes, by default; aggregate="compact" counts each shard's windows
+    with count_words) and metrics: reads, kmers_emitted, windows_skipped,
+    superkmers (run starts), route_overflow (in K-MERS: the weight of the
+    dropped runs, prefilter drops included), route_rerouted and
+    route_bytes.
 
     The global table after the cross-shard re-count equals single-device
     counting.  route_capacity is a budget of super-k-mers per destination.
@@ -338,7 +443,7 @@ def make_superkmer_counter(mesh, k: int, w: int, *, route_capacity: int,
     and passes * D * C of them kept (the JAX package's prefilter, which
     it runs on the TPU only), on every device: unless that budget
     truncates, the routed lanes are those of routing every lane."""
-    _check_unit(aggregate, k, "make_superkmer_counter")
+    _check_sharded(aggregate, k, "make_superkmer_counter")
     check_k_range(w, 1, k, "make_superkmer_counter (w)")
     nwords, meta_off, fold = _superkmer_layout(k, w)
     n_planes = nwords if fold else nwords + 1
@@ -366,7 +471,7 @@ def make_superkmer_counter(mesh, k: int, w: int, *, route_capacity: int,
         for rp in routed:
             fw, wv = expand_superkmers(rp.planes, rp.valid, k, w)
             canon = kmer.canonical_word(fw, u64.reverse_complement(fw, k))
-            tables.append(count_ops.unit_table(canon, wv))
+            tables.append(_shard_table(canon, wv, k, aggregate))
         dev = mesh[0]
         emitted = _psum(kmers, dev)
         n_reads = reads.shape[0]
@@ -383,5 +488,44 @@ def make_superkmer_counter(mesh, k: int, w: int, *, route_capacity: int,
             * (4 * n_planes + 1),
         }
         return CountResult(tables, metrics)
+
+    return fn
+
+
+# -- sharded minimizer bucketing (BASELINE config 4) ---------------------------
+
+def make_sharded_minimizer_counter(mesh, k: int, w: int, *,
+                                   route_capacity: int, seed: int = 0,
+                                   use_lex: bool = False,
+                                   route_passes: int = 1):
+    """Minimizer bucketing over `mesh` (kmers_tpu/parallel/pipeline.py:561):
+    fn(reads [B, L] uint8) -> CountResult with, per shard, a compact
+    table of (minimizer w-mer word, number of k-mers it is the minimizer
+    of) for the minimizers that shard owns by hash, and metrics
+    kmers_emitted, route_overflow, route_rerouted.  Minimizers are the
+    plain ops.minimizer stream (mix_hash order, or lex with use_lex), as
+    in the JAX package; each shard's table is count_words(max_k=w), K11's
+    sort on the card.  Minimizer words repeat along a read, so the
+    destination load is skewed: raise route_passes past 1 for exact
+    tables; what still overflows is counted."""
+    check_k_range(k, 1, NARROW_MAX_K, "make_sharded_minimizer_counter")
+    check_k_range(w, 1, k, "make_sharded_minimizer_counter (w)")
+    hash_fn = (hash_ops.lex_hash_fn(w) if use_lex
+               else hash_ops.mix_hash_fn(seed))
+
+    def fn(reads: torch.Tensor) -> CountResult:
+        mms = [mini_ops.minimizer_stream(r, k, w, hash_fn)
+               for r in mesh_ops.batch_sharding(reads, mesh)]
+        routed = route_ops.route([m.word for m in mms],
+                                 [m.valid for m in mms], mesh,
+                                 route_capacity, seed, passes=route_passes)
+        dev = mesh[0]
+        metrics = {
+            "kmers_emitted": _psum([m.valid.sum() for m in mms], dev),
+            "route_overflow": _psum([r.overflow for r in routed], dev),
+            "route_rerouted": _psum([r.rerouted for r in routed], dev),
+        }
+        return CountResult([count_ops.count_words(r.words, r.valid, max_k=w)
+                            for r in routed], metrics)
 
     return fn

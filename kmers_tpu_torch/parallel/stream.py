@@ -1,17 +1,20 @@
 """Streaming k-mer counting over many read batches (counterpart of
 ``kmers_tpu/parallel/stream.py``): ``StreamingCounter`` on one device,
-k <= 31 and 33 <= k <= 63 (128-bit keys past k = 32), and
-``ShardedStreamingCounter`` over a mesh, k <= 31.
+1 <= k <= 64 (128-bit keys past k = 32), and ``ShardedStreamingCounter``
+over a mesh, k <= 31.
 
   per batch:    unit emission -- the window kernel's folded canonical keys
-                as a count.UnitTable(Wide); no per-batch sort.
-  consolidate:  deferred -- unit tables wait in a pending list and merge
+                as a count.UnitTable(Wide); no per-batch sort.  k = 32 and
+                k = 64 keys fill every bit, so no flag folds in: their
+                batches are run-length tables (KmerSpec.aggregate).
+  consolidate:  deferred -- batch tables wait in a pending list and merge
                 into the main table every `merge_every` batches (and before
-                any read of the table): one sort of the pending keys (two
-                stable torch.sorts for 128-bit keys), then
-                count.merge_table_with_sorted_units(_wide) (merge and
-                compress kernels), then _bound_table's eviction if the
-                merged table outgrew capacity.
+                any read of the table).  Unit tables: one sort of the
+                pending keys (two stable torch.sorts for 128-bit keys),
+                then count.merge_table_with_sorted_units(_wide) (merge and
+                compress kernels).  Run-length tables: _merge_bounded(_wide),
+                count.merge_many's weighted re-count.  Then _bound_table's
+                eviction if the merged table outgrew capacity.
 
 Eviction policy (the JAX package's): past capacity the LOWEST-count
 entries go first, ties evict the numerically largest keys, and the
@@ -34,7 +37,7 @@ import torch
 
 from .. import convert
 from ..core import u64, u128
-from ..core.spec import KmerSpec, check_k
+from ..core.spec import NARROW_MAX_K, KmerSpec, check_k
 from . import count as count_ops
 from . import mesh as mesh_ops
 from . import pipeline
@@ -85,6 +88,19 @@ def _merge_bounded_streaming_wide(table, pending, capacity: int):
     return _bound_table(merged, capacity)
 
 
+def _merge_bounded(table, pending, capacity: int, max_k=None):
+    """merge_many of the table and the pending tables of any form, then
+    _bound_table (kmers_tpu/parallel/stream.py:60-64)."""
+    return _bound_table(count_ops.merge_many([table] + list(pending),
+                                             max_k=max_k), capacity)
+
+
+def _merge_bounded_wide(table, pending, capacity: int, max_k=None):
+    """_merge_bounded for 128-bit tables (stream.py:171-179)."""
+    return _bound_table(count_ops.merge_many_wide([table] + list(pending),
+                                                  max_k=max_k), capacity)
+
+
 def _bound_table(merged, capacity: int):
     """Bound a compact key-sorted table (either width) to `capacity`
     slots: a slice when it fits, rank eviction (dead last, count
@@ -127,10 +143,10 @@ def _to_device(a, dtype: torch.dtype, device) -> torch.Tensor:
 
 class StreamingCounter:
     """Fold read batches into one fixed-capacity canonical k-mer table on
-    `device`: k <= 31 keys are one 64-bit word (two int32 planes),
-    33 <= k <= 63 keys 128 bits (four planes) through the whole stack --
-    windows, sort, merge, eviction, lookup, checkpoint.  k = 32 and 64 (the
-    run-length path) are not ported."""
+    `device`: k <= 32 keys are one 64-bit word (two int32 planes),
+    33 <= k <= 64 keys 128 bits (four planes) through the whole stack --
+    windows, sort, merge, eviction, lookup, checkpoint.  Batches are unit
+    tables, or run-length tables at k = 32 and k = 64."""
 
     def __init__(self, k, capacity: int, merge_every: int = 16, *, device):
         self.spec = k if isinstance(k, KmerSpec) else KmerSpec(k)
@@ -154,7 +170,7 @@ class StreamingCounter:
         """Count one [B, L] uint8 ASCII batch; consolidation is deferred."""
         count = pipeline.count_reads_wide if self.wide else pipeline.count_reads
         self._absorb(count(_to_device(reads, torch.uint8, self.device),
-                           self.k))
+                           self.k, aggregate=self.spec.aggregate))
 
     def update_packed(self, words, validbits) -> None:
         """Count one packed batch ([B, L/16] code words + [B, L/32]
@@ -163,7 +179,7 @@ class StreamingCounter:
                  else pipeline.count_reads_packed)
         self._absorb(count(_to_device(words, torch.int32, self.device),
                            _to_device(validbits, torch.int32, self.device),
-                           self.k))
+                           self.k, aggregate=self.spec.aggregate))
 
     def _absorb(self, res) -> None:
         self._pending.append(res.table)
@@ -182,9 +198,15 @@ class StreamingCounter:
                 and len(pending) < self.merge_every):
             empty = count_ops.empty_like_table(pending[0])
             pending += [empty] * (self.merge_every - len(pending))
-        merge = (_merge_bounded_streaming_wide if self.wide
-                 else _merge_bounded_streaming)
-        new_table, du, dk = merge(self.table, pending, self.capacity)
+        if all(isinstance(t, (count_ops.UnitTable, count_ops.UnitTableWide))
+               for t in pending):
+            merge = (_merge_bounded_streaming_wide if self.wide
+                     else _merge_bounded_streaming)
+            new_table, du, dk = merge(self.table, pending, self.capacity)
+        else:
+            merge = _merge_bounded_wide if self.wide else _merge_bounded
+            new_table, du, dk = merge(self.table, pending, self.capacity,
+                                      max_k=self.k)
         # commit only after the merge completed: a fault raises before any
         # counter moves, so discard_pending rewinds batches and kmer mass
         # together
@@ -206,7 +228,8 @@ class StreamingCounter:
 
     def lookup(self, words) -> torch.Tensor:
         """Counts (int32) of canonical query words: an int64 tensor
-        (k <= 31) or a (hi, lo) pair of int64 tensors (k > 32)."""
+        (k <= 32; u64.from_ints makes one of unsigned ints) or a (hi, lo)
+        pair of int64 tensors (k > 32)."""
         self._consolidate()
         if self.wide:
             return count_ops.lookup_wide(
@@ -222,7 +245,7 @@ class StreamingCounter:
         if self.wide:
             keys = u128.to_ints(*u128.join_planes(*live))
         else:
-            keys = u64.join_planes(*live).cpu().tolist()
+            keys = u64.to_ints(u64.join_planes(*live).cpu())
         counts = self.table.counts[:nu].cpu().tolist()
         return list(zip(keys, counts))
 
@@ -287,9 +310,9 @@ class ShardedStreamingCounter(StreamingCounter):
                  minimizer_w: Optional[int] = None):
         mesh = mesh if mesh is not None else mesh_ops.make_mesh(n_devices)
         super().__init__(k, capacity, merge_every, device=mesh[0])
-        if self.wide:
+        if self.k > NARROW_MAX_K:
             raise NotImplementedError(
-                f"k={self.k}: the wide sharded path (k > 31) is not ported")
+                f"k={self.k}: the sharded path at k > 31 is not ported")
         if partition not in ("hash", "minimizer"):
             raise ValueError(f"partition must be 'hash' or 'minimizer', "
                              f"got {partition!r}")
@@ -308,7 +331,7 @@ class ShardedStreamingCounter(StreamingCounter):
         self.route_bytes = 0
         self._pending_overflow = []
         route = dict(route_capacity=route_capacity, route_passes=route_passes,
-                     seed=seed)
+                     seed=seed, aggregate=self.spec.aggregate)
         if partition == "minimizer":
             self._scount = pipeline.make_superkmer_counter(
                 mesh, self.k, minimizer_w, **route)

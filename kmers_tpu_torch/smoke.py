@@ -1,8 +1,9 @@
 """The small fixed count that ties the port to the JAX package.
 
-``SMOKE_DIGEST`` (k = 31) and ``SMOKE_DIGEST_WIDE`` (k = 63, 128-bit
-keys) are the ``npz_digest``s of the tables that ``python -m kmers_tpu
-count`` writes for the seeded input below.  The tier-1 tests assert that
+``SMOKE_DIGEST`` (k = 31), ``SMOKE_DIGEST_WIDE`` (k = 63, 128-bit keys),
+``SMOKE_DIGEST_32`` and ``SMOKE_DIGEST_64`` (the run-length path: keys
+that fill every bit) are the ``npz_digest``s of the tables that
+``python -m kmers_tpu count`` writes for the seeded input below.  The tier-1 tests assert that
 the JAX package on the CPU and the port on the CPU both produce them;
 ``chip_smoke.py`` asserts that the port produces them on the card, where
 JAX is not installed.
@@ -20,6 +21,16 @@ SMOKE_DIGEST = \
 
 SMOKE_DIGEST_WIDE = \
     "8fff13fd4903f958af6c29b6e0cdc0a0655a2f6a258ac4c0cb48b04bae26896e"
+
+SMOKE_DIGEST_32 = \
+    "ec4efec9e18e93fab90ff8a5d085b39e1acdb1f045b6dfeebb65b292849ee90f"
+
+SMOKE_DIGEST_64 = \
+    "e550a75f8387accd58dfbee383d7561311ec0a4d994d6117db0cad04fc341ccd"
+
+# k -> the digest of its smoke count
+SMOKE_DIGESTS = {31: SMOKE_DIGEST, 63: SMOKE_DIGEST_WIDE,
+                 32: SMOKE_DIGEST_32, 64: SMOKE_DIGEST_64}
 
 
 def write_smoke_input(path: str) -> str:

@@ -79,13 +79,20 @@ def test_cli_matches_kmers_tpu(fastq, tmp_path, extra, want_rc):
 @pytest.mark.parametrize("argv", [
     ["--devices", "2", "-k", "33"],                     # wide sharded path
     ["--devices", "2", "--partition", "minimizer", "-k", "63"],
-    ["-k", "32"], ["-k", "64"],
+    ["-k", "32"], ["-k", "64"],                         # counted
 ])
 def test_cli_rejects_unported_options(fastq, tmp_path, argv):
-    args = ["count", fastq, "-o", str(tmp_path / "x.npz"), "-k", "21",
-            "--device", "cpu"] + argv
+    """The sharded path at k > 31 exits 2; k = 32 and k = 64 on one
+    device count, to kmers_tpu's table (SMOKE_DIGEST_32 / _64)."""
+    out = str(tmp_path / "x.npz")
+    args = ["count", fastq, "-o", out, "-k", "21", "--capacity", "65536",
+            "--batch", "256", "--length", "160", "--device", "cpu"] + argv
     rc, _, err = run(port_main, args)
-    assert rc == 2 and "not ported" in err
+    if "--devices" in argv:
+        assert rc == 2 and "not ported" in err
+    else:
+        assert rc == 0, err
+        assert npz_digest(out) == smoke.SMOKE_DIGESTS[int(argv[-1])]
 
 
 def test_cli_rejects_a_minimizer_width_past_k(fastq, tmp_path):

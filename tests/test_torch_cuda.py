@@ -248,3 +248,98 @@ def test_sharded_count_on_card_gives_the_reference_table(card, tmp_path,
     assert counts["merge_sorted"] > 0 and counts["compress_flagged"] > 0
     assert (counts["minimizer_kernel"] > 0) == (partition == "minimizer")
     assert npz_digest(str(tmp_path / "t.npz")) == smoke.SMOKE_DIGEST
+
+
+def folded_keys(card, n, n_planes, k, seed, distinct=5000):
+    """n folded keys of k bases (2 or 4 planes, drawn from `distinct`
+    values so that runs repeat), a fifth of them invalid:
+    (0x80000000, 0[, 0, 0])."""
+    from kmers_tpu_torch.core import u128
+
+    g = torch.Generator(device=card).manual_seed(seed)
+    rand = lambda m, bits: torch.randint(0, 1 << bits, (m,), device=card,
+                                         generator=g)
+    pick = torch.randint(0, distinct, (n,), device=card, generator=g)
+    valid = torch.rand(n, device=card, generator=g) >= 0.2
+    if n_planes == 2:
+        word = rand(distinct, 2 * k)[pick]
+        return u64.fold_invalid(word, valid)
+    hi = rand(distinct, 2 * k - 64)[pick]
+    lo = (rand(distinct, 62)[pick] << 2) - (1 << 63)   # bit 63 set too
+    return u128.fold_invalid(hi, lo, valid)
+
+
+@pytest.mark.parametrize("n", [0, 1, 777, 16384, 1 << 20, 1_000_003])
+def test_segment_count_kernel_matches_plain(card, n):
+    """K10 narrow (k=31) and wide (k=63) on every output lane, at each
+    segment size the kernel takes, n on and off the block size."""
+    from kmers_tpu_torch.kernels import count_tile as tct
+
+    for n_planes, k, fn in ((2, 31, tct.segment_count_keys),
+                            (4, 63, tct.segment_count_keys_wide)):
+        planes = folded_keys(card, n, n_planes, k, n + n_planes)
+        for seg in tct.CARD_SEG_LANES:
+            blk = 1 << 14 if n > 4096 else 1024
+            got = fn(*planes, seg_lanes=seg, block_lanes=blk)
+            want = tct.segment_count_plain(planes, seg, blk)
+            assert equal_all(got, want), (n_planes, seg)
+    with pytest.raises(ValueError, match="seg_lanes"):
+        tct.segment_count_keys(*folded_keys(card, 64, 2, 31, 0), seg_lanes=16)
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 4095, 4096, 4097, 1 << 20, 1_000_003])
+def test_radix_sort_kernel_matches_plain(card, n):
+    """K11 against torch.sort of the unsigned words: full 64-bit keys with
+    duplicates and flagged lanes, short keys (most passes skipped), and
+    all keys equal."""
+    from kmers_tpu_torch.kernels import sort as tsort
+
+    g = torch.Generator(device=card).manual_seed(n)
+    full = torch.randint(-(1 << 63), (1 << 63) - 1, (n,), device=card,
+                         generator=g)
+    if n > 8:
+        full[: n // 4] = full[n // 2: n // 2 + n // 4]
+    flagged = u64.fold_invalid(
+        torch.randint(0, 1 << 62, (n,), device=card, generator=g),
+        torch.rand(n, device=card, generator=g) < 0.7)
+    short = u64.split_word(torch.randint(0, 1 << 22, (n,), device=card,
+                                         generator=g))
+    same = u64.split_word(torch.full((n,), 12345, device=card,
+                                     dtype=torch.int64))
+    for hi, lo in (u64.split_word(full), flagged, short, same):
+        assert equal_all(tsort.radix_sort_u64(hi, lo),
+                         tsort.radix_sort_u64_plain(hi, lo))
+
+
+@pytest.mark.parametrize("k,compact,kernel", [
+    (31, True, "radix_sort_u64"), (31, False, "segment_count_keys"),
+    (63, False, "segment_count_keys_wide"), (32, True, None),
+    (64, False, None)])
+def test_count_forms_on_card_match_the_cpu(card, k, compact, kernel):
+    """count_reads(_wide) on the card launches K11 (compact, k <= 31) or
+    K10 (run-length, k <= 31 / k <= 63) and gives the CPU's table."""
+    from kmers_tpu_torch.parallel import pipeline
+
+    reads = card_reads(card, 64, 320, k)
+    count = pipeline.count_reads_wide if k > 32 else pipeline.count_reads
+    kernels.reset_launch_counts()
+    got = count(reads, k, compact=compact).table
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    want = count(reads.cpu(), k, compact=compact).table
+    assert got.n_unique == want.n_unique
+    assert equal_all(tuple(p.cpu() for p in got.keys) + (got.counts.cpu(),),
+                     tuple(want.keys) + (want.counts,))
+    if kernel:
+        assert launched[kernel] == 1
+
+
+@pytest.mark.parametrize("k", [32, 64])
+def test_full_width_count_on_card_gives_the_reference_table(card, tmp_path,
+                                                            k):
+    fq = smoke.write_smoke_input(str(tmp_path / "smoke.fastq"))
+    out = str(tmp_path / "t.npz")
+    with contextlib.redirect_stderr(io.StringIO()):
+        assert main(smoke.smoke_count_args(fq, out, k)
+                    + ["--device", "cuda"]) == 0
+    assert npz_digest(out) == smoke.SMOKE_DIGESTS[k]

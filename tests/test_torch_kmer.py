@@ -122,7 +122,8 @@ def test_planes_round_trip_keeps_bit_patterns():
 
 
 @pytest.mark.parametrize("s", ["A", "acgtT", "GATTACA" * 4 + "CGT",
-                               "TTTTTTTTTTTTTTTTTTTTTTTTTTTTTTT"])
+                               "TTTTTTTTTTTTTTTTTTTTTTTTTTTTTTT",
+                               "A" * 16 + "T" * 16, "G" * 32])
 def test_canonical_from_string_matches_oracle(s):
     fw = oracle.word_from_bytes(s.upper().encode())
     want = min(fw, oracle.reverse_complement_word(fw, len(s)))
@@ -133,4 +134,4 @@ def test_canonical_from_string_rejects_bad_input():
     with pytest.raises(ValueError):
         tkmer.canonical_from_string("ACNGT")
     with pytest.raises(ValueError):
-        tkmer.canonical_from_string("A" * 32)
+        tkmer.canonical_from_string("A" * 33)

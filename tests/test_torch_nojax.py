@@ -1,10 +1,14 @@
-"""The port runs where JAX is absent: every module imports, and a tiny
-count at k = 15 (on one device, and sharded over two CPU shards by hash
-and by minimizer) and at k = 63 (the wide tier) runs on the CPU, with
-``sys.modules["jax"] = None`` (any import of jax then fails)."""
+"""The port runs where JAX and the JAX package are absent: from a tree
+that holds only ``kmers_tpu_torch/`` and ``native/``, with
+``sys.modules["jax"] = None`` (any import of jax then fails), every module
+imports, and a tiny count runs on the CPU at k = 15 (on one device, and
+sharded over two CPU shards by hash and by minimizer), k = 32, k = 63 and
+k = 64.  The sources neither import nor name a path into ``kmers_tpu/``."""
 
+import ast
 import os
 import re
+import shutil
 import subprocess
 import sys
 
@@ -14,9 +18,11 @@ PKG = os.path.dirname(os.path.abspath(kmers_tpu_torch.__file__))
 ROOT = os.path.dirname(PKG)
 
 SCRIPT = r"""
-import importlib, os, pkgutil, sys
+import importlib, importlib.util, os, pkgutil, sys
 sys.modules["jax"] = None
 import kmers_tpu_torch
+assert kmers_tpu_torch.__file__.startswith(sys.argv[2]), kmers_tpu_torch.__file__
+assert importlib.util.find_spec("kmers_tpu") is None
 for m in pkgutil.walk_packages(kmers_tpu_torch.__path__, "kmers_tpu_torch."):
     importlib.import_module(m.name)
 from kmers_tpu_torch.__main__ import main
@@ -38,19 +44,31 @@ wide = os.path.join(sys.argv[1], "w.npz")
 assert main(["count", fq, "-k", "63", "-o", wide, "--batch", "16",
              "--length", "128", "--device", "cpu"]) == 0
 assert main(["stats", wide, "--device", "cpu"]) == 0
+for k in (32, 64):
+    full = os.path.join(sys.argv[1], f"k{k}.npz")
+    assert main(["count", fq, "-k", str(k), "-o", full, "--batch", "16",
+                 "--length", "128", "--device", "cpu"]) == 0
+    assert main(["stats", full, "--device", "cpu"]) == 0
 assert "kmers_tpu" not in sys.modules and "jax.numpy" not in sys.modules
 print("NOJAX-OK")
 """
 
 
 def test_port_imports_and_counts_without_jax(tmp_path):
-    proc = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path)],
-                          cwd=ROOT, capture_output=True, text=True,
-                          timeout=120)
+    tree = tmp_path / "tree"
+    skip = shutil.ignore_patterns("__pycache__", "*.pyc")
+    for name in ("kmers_tpu_torch", "native"):
+        shutil.copytree(os.path.join(ROOT, name), tree / name, ignore=skip)
+    env = dict(os.environ, PYTHONPATH=str(tree))
+    proc = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path),
+                           str(tree)], cwd=tree, env=env,
+                          capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "NOJAX-OK" in proc.stdout
     assert "total kmers:    3440" in proc.stdout      # 40 reads x 86 windows
+    assert "total kmers:    2760" in proc.stdout      # 40 reads x 69 windows
     assert "total kmers:    1520" in proc.stdout      # 40 reads x 38 windows
+    assert "total kmers:    1480" in proc.stdout      # 40 reads x 37 windows
 
 
 def test_port_sources_import_neither_jax_nor_kmers_tpu():
@@ -65,3 +83,62 @@ def test_port_sources_import_neither_jax_nor_kmers_tpu():
                     if pattern.search(f.read()):
                         offenders.append(path)
     assert offenders == []
+
+
+def _code_strings(tree: ast.AST):
+    """The string constants of a module that are not docstrings."""
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            body = node.body
+            if (body and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)):
+                docs.add(id(body[0].value))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs):
+            yield node
+
+
+def test_port_sources_name_no_path_into_kmers_tpu():
+    """No string in the port's code (docstrings aside, which cite the
+    reference) names the JAX package: nothing can load a file of it."""
+    pattern = re.compile(r"kmers_tpu(?!_torch)")
+    offenders = []
+    for dirpath, _, files in os.walk(PKG):
+        for name in files:
+            if name.endswith(".py"):
+                path = os.path.join(dirpath, name)
+                with open(path) as f:
+                    tree = ast.parse(f.read())
+                offenders += [f"{path}:{node.lineno}"
+                              for node in _code_strings(tree)
+                              if pattern.search(node.value)]
+    assert offenders == []
+
+
+def test_fastx_batches_match_kmers_tpu(tmp_path):
+    """The port's own ingest gives the JAX package's batches, native and
+    Python parsers alike, packed and ASCII, for a record longer than a
+    row (halo chunking)."""
+    from kmers_tpu.io import fastx as jfastx
+    from kmers_tpu_torch.io import fastx, simulate
+
+    fq = str(tmp_path / "r.fastq")
+    simulate.write_fastq(fq, 5000, 30, 100, 0.01, 0.01, 2)
+    fa = str(tmp_path / "long.fa")
+    with open(fa, "w") as f:
+        f.write(">a\n" + "ACGTNACGGT" * 70 + "\n>b\nACGT\n")
+    for path in (fq, fa):
+        for force in (False, True):
+            kw = dict(k=21, batch=8, length=128, force_python=force)
+            for a, b in zip(fastx.read_kmer_batches(path, **kw),
+                            jfastx.read_kmer_batches(path, **kw)):
+                assert (a == b).all()
+            got = list(fastx.read_packed_batches(path, **kw))
+            want = list(jfastx.read_packed_batches(path, **kw))
+            assert len(got) == len(want) > 0
+            for (w, v), (jw, jv) in zip(got, want):
+                assert (w == jw).all() and (v == jv).all()
+    assert list(fastx.prefetch(iter(range(5)), depth=2)) == list(range(5))

@@ -248,7 +248,8 @@ def test_sharded_counter_matches_jax(cap, passes, packed, meshes):
     args = pack_batch_np(rows) if packed else (rows,)
     jres = run_jax(jpipe.make_sharded_counter(
         jm, k, packed=packed, aggregate="unit", **kw), jm, *args)
-    tres = tpipe.make_sharded_counter(tm, k, packed=packed, **kw)(
+    tres = tpipe.make_sharded_counter(tm, k, packed=packed, aggregate="unit",
+                                      **kw)(
         *(torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
           for a in args))
     assert_same_result(jres, tres)
@@ -306,7 +307,7 @@ def test_three_shards_match_jax(partition):
               route_passes=3, seed=2)
     if partition == "hash":
         jfn = jpipe.make_sharded_counter(jm, k, aggregate="unit", **kw)
-        tfn = tpipe.make_sharded_counter(tm, k, **kw)
+        tfn = tpipe.make_sharded_counter(tm, k, aggregate="unit", **kw)
     else:
         jfn = jpipe.make_superkmer_counter(jm, k, w, **kw)
         tfn = tpipe.make_superkmer_counter(tm, k, w, **kw)
@@ -348,13 +349,16 @@ def test_superkmer_reverse_complement_pairs_exact(meshes):
 
 def test_counters_reject_what_is_not_ported(meshes):
     _, tm = meshes
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="aggregate"):
         tpipe.make_sharded_counter(tm, 21, route_capacity=8,
-                                   aggregate="compact")
+                                   aggregate="sorted")
+    with pytest.raises(ValueError):
+        tpipe.make_sharded_counter(tm, 32, route_capacity=8)
     with pytest.raises(ValueError):
         tpipe.make_superkmer_counter(tm, 33, 11, route_capacity=8)
-    with pytest.raises(NotImplementedError):
-        ShardedStreamingCounter(41, 64, mesh=tm)
+    for k in (32, 41, 64):
+        with pytest.raises(NotImplementedError):
+            ShardedStreamingCounter(k, 64, mesh=tm)
     with pytest.raises(ValueError):
         ShardedStreamingCounter(21, 64, mesh=tm, partition="range")
 

@@ -176,6 +176,16 @@ def test_count_fastx_matches_jax(tmp_path, length):
 
 
 def test_counter_rejects_unported_k():
+    """k = 32 and k = 64 count (run-length batches); k outside
+    1..64 is refused."""
+    rows = batches(5, n=2)
     for k in (32, 64):
+        sc = StreamingCounter(k, 1 << 13, device="cpu")
+        assert sc.spec.aggregate == "runlength" and sc.wide == (k == 64)
+        feed(sc, rows, packed=True)
+        pairs = sc.to_pairs()
+        assert sc.kmers == sum(c for _, c in pairs) > 0
+        assert [w for w, _ in pairs] == sorted(w for w, _ in pairs)
+    for k in (0, 65):
         with pytest.raises(ValueError):
             StreamingCounter(k, 64, device="cpu")
