@@ -31,13 +31,27 @@ the exit code is non-zero):
   6. the minimizer kernel K9 against its plain version on every lane, for
      each order (mix64, mix32, mix16, lex) at six (k, w) pairs and at a
      row length off 32; K9 and plain timed at [2048, 1024], k=31, w=11,
-     mix16 (bench_configs.py's config 4 shape).
+     mix16 (bench_configs.py's config 4 shape), and at the [4096, 256] and
+     [1024, 256] batches phase 7 gives it.
   7. sharded counting, k=31, on the 1M-read set: ShardedStreamingCounter
      by minimizer (super-k-mers, K9) and by hash partition, each with one
      shard and with four shards placed on the one card.  Each run must
      have zero routing overflow, save the table of phase 3's single-device
      count (npz_digest), and launch K3 and K4 (and K9 under the minimizer
      partition).
+  8. K10 (narrow and wide) and K11 against their plain versions on the
+     count forms' keys, timed (K11 beside torch.sort at the 2^18 keys of a
+     phase-11 shard, 2^20, 2^24 and 1,000,003 keys).
+  9. the 1M-read set through the compact (K11) and run-length (K10)
+     batch tables, folded every 16 batches: each table equals phase 3's /
+     phase 4's.
+ 10. `count` at k=32 and k=64 (run-length path) against torch.unique,
+     and their smoke digests, eviction, stats and query.
+ 11. the compact sharded counter and minimizer bucketing on 4 shards.
+ 12. one K11 call on phase 8's 2^20 keys: whether the host waits for the
+     card in it, the device operations it queues and the key bytes it
+     moves; then the device time of each of its kernels at every phase-8
+     size (torch.profiler, last so that it cannot skew the walls above).
 
 The last three lines: `nvidia-smi` name and power limit, a JSON object
 of the kernels' launches, errors and times, and
@@ -100,6 +114,8 @@ KERNEL_INFO = {
 # minimizer partition's budget counts super-k-mers, ~12 per 150 bp read
 SHARDED_RUNS = (("minimizer", 1, 1 << 16), ("minimizer", 4, 1 << 13),
                 ("hash", 1, 1 << 20), ("hash", 4, 1 << 16))
+# phase 11's compact sharded counter: (shards, route_capacity)
+SHARDED_COMPACT = (4, 1 << 16)
 
 
 def say(msg: str) -> None:
@@ -635,15 +651,19 @@ def phase_minimizer(stats: dict, seed: int) -> None:
                     kmin.minimizer_kernel(r, k, w, seed, order),
                     kmin.minimizer_kernel_plain(r, k, w, seed, order)))
     # the shapes phase 7's minimizer runs give K9: one shard's rows of a
-    # [4096, 256] batch at D = 1 and D = 4, k=31 w=11 mix16, seed 0
+    # [4096, 256] batch at D = 1 and D = 4, k=31 w=11 mix16, seed 0; timed
+    # there too
     batch, length = SIZES["window"]
     main_shapes = [(batch // shards, length) for p, shards, _ in SHARDED_RUNS
                    if p == "minimizer"]
+    shape_times = {}
     for shape in main_shapes:
         r = torch.from_numpy(seeded_reads(rs, *shape)).to(DEVICE)
-        err = max(err, max_abs_err(
-            kmin.minimizer_kernel(r, 31, 11, 0, "mix16"),
-            kmin.minimizer_kernel_plain(r, 31, 11, 0, "mix16")))
+        run = lambda: kmin.minimizer_kernel(r, 31, 11, 0, "mix16")
+        plain = lambda: kmin.minimizer_kernel_plain(r, 31, 11, 0, "mix16")
+        err = max(err, max_abs_err(run(), plain()))
+        shape_times[shape] = (time_ms(run), time_ms(plain),
+                              bound_ms(nbytes(r, *run())))
     if err:
         raise AssertionError(f"minimizer_kernel differs from its plain "
                              f"version (max_abs_err {err})")
@@ -660,7 +680,10 @@ def phase_minimizer(stats: dict, seed: int) -> None:
     say(f"phase 6 minimizer kernel: bit-exact vs plain for 4 orders x 6 "
         f"(k, w) at [{reads.shape[0]}, {reads.shape[1]}] and [333, 999], "
         f"k=31 w=11 mix16 at the sharded runs' {main_shapes}; k=31 w=11 "
-        f"mix16 {res['ms']:.3f} ms (plain {res['plain_ms']:.3f} ms)")
+        f"mix16 {res['ms']:.4f} ms (plain {res['plain_ms']:.3f} ms, bound "
+        f"{res['bound_ms']:.4f}); " + "; ".join(
+            f"[{b}, {l}] {t[0]:.4f} ms (plain {t[1]:.3f}, bound {t[2]:.4f})"
+            for (b, l), t in shape_times.items()))
 
 
 def phase_sharded(stats: dict, workdir: str) -> None:
@@ -729,13 +752,41 @@ def phase_sharded(stats: dict, workdir: str) -> None:
     stats["launches"]["minimizer_kernel"] = k9
 
 
-def phase_sort_kernels(stats: dict, seed: int) -> None:
+def _shard_sort_keys(fastq: str) -> tuple:
+    """The (hi, lo) planes phase 11 gives K11 for one shard: the first
+    packed batch through make_sharded_counter, caught at the wrapper."""
+    import numpy as np
+    import torch
+
+    from kmers_tpu_torch.io import fastx
+    from kmers_tpu_torch.kernels import sort as ksort
+    from kmers_tpu_torch.parallel import pipeline
+    from kmers_tpu_torch.parallel.mesh import make_mesh
+
+    shards, route_capacity = SHARDED_COMPACT
+    step = pipeline.make_sharded_counter(
+        make_mesh(devices=[DEVICE] * shards), 31,
+        route_capacity=route_capacity, packed=True)
+    wv = next(iter(fastx.read_packed_batches(fastq, k=31, batch=4096,
+                                             length=256)))
+    caught, sort = [], ksort.radix_sort_u64
+    ksort.radix_sort_u64 = lambda hi, lo: caught.append((hi, lo)) or sort(
+        hi, lo)
+    try:
+        step(*(torch.from_numpy(a.view(np.int32)).to(DEVICE) for a in wv))
+    finally:
+        ksort.radix_sort_u64 = sort
+    return caught[0]
+
+
+def phase_sort_kernels(stats: dict, seed: int, workdir: str) -> dict:
     """Phase 8: K10 (narrow and wide) and K11 bit for bit against their
     plain versions, on the keys the count forms give them: a [4096, 256]
     batch's folded canonical keys at k=31 and k=63 (2^20 lanes, and the
     first 1,000,003 of them, off the block size), the compact form's sort
-    keys at k=31 (2^20), and 2^24 and 1,000,003 seeded 64-bit keys with
-    duplicates and flagged lanes; median times, and torch.sort's for K11."""
+    keys at k=31 (2^20), one phase-11 shard's keys (2^18), and 2^24 and
+    1,000,003 seeded 64-bit keys with duplicates and flagged lanes; median
+    times, and torch.sort's for K11.  Returns K11's inputs by label."""
     import numpy as np
     import torch
 
@@ -778,13 +829,16 @@ def phase_sort_kernels(stats: dict, seed: int) -> None:
     big[: n // 4] = big[n // 2: n // 2 + n // 4]
     big = torch.where(torch.rand(n, device=DEVICE, generator=g) < 0.1,
                       big | u64.SIGN_BIT, big)
+    inputs = {"shard": _shard_sort_keys(os.path.join(workdir,
+                                                     "ecoli_1m.fastq")),
+              "2^20": u64.split_word(key), "2^24": u64.split_word(big),
+              str(odd): u64.split_word(big[:odd])}
     times = {}
     err = 0
-    for label, words in (("2^20", key), ("2^24", big), (str(odd), big[:odd])):
-        hi, lo = u64.split_word(words)
+    for label, (hi, lo) in inputs.items():
         err = max(err, max_abs_err(ksort.radix_sort_u64(hi, lo),
                                    ksort.radix_sort_u64_plain(hi, lo)))
-        flipped = u64.to_unsigned_order(words)
+        flipped = u64.to_unsigned_order(u64.join_planes(hi, lo))
         times[label] = (time_ms(lambda: ksort.radix_sort_u64(hi, lo)),
                         time_ms(lambda: ksort.radix_sort_u64_plain(hi, lo)),
                         time_ms(lambda: torch.sort(flipped)),
@@ -799,10 +853,75 @@ def phase_sort_kernels(stats: dict, seed: int) -> None:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version (max_abs_err "
                                  f"{res[name]['max_abs_err']})")
-    notes += [f"radix_sort_u64 [{label}] {t[0]:.3f} ms (plain {t[1]:.3f}, "
-              f"torch.sort {t[2]:.3f}, bound {t[3]:.4f})"
-              for label, t in times.items()]
+    notes += [f"radix_sort_u64 [{label}: {inputs[label][0].shape[0]}] "
+              f"{t[0]:.4f} ms (plain {t[1]:.3f}, torch.sort {t[2]:.4f}, "
+              f"bound {t[3]:.4f})" for label, t in times.items()]
     say("phase 8 sort kernels: bit-exact vs plain; " + "; ".join(notes))
+    return inputs
+
+
+def phase_sort_call(inputs: dict) -> None:
+    """Phase 12: one K11 call on phase 8's 2^20 compact keys.  The host
+    must return from it while a queued sleep of ~50 ms still runs (a host
+    sync anywhere in the call, torch's or the library's, would wait for
+    the sleep); torch's sync debug mode must see no sync; torch.profiler
+    lists the device operations it queues.  Then the device time of each
+    of its kernels at every size of phase 8."""
+    import torch
+
+    from kmers_tpu_torch.core import u64
+    from kmers_tpu_torch.kernels import sort as ksort
+
+    hi, lo = inputs["2^20"]
+    ksort.radix_sort_u64(hi, lo)
+    sync()
+    torch.cuda._sleep(100_000_000)
+    queued = torch.cuda.Event()
+    queued.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ksort.radix_sort_u64(hi, lo)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    waited = queued.query()
+    sync()
+    if waited:
+        raise AssertionError("radix_sort_u64: the host waited for the card")
+    word = u64.join_planes(hi, lo)
+    digits = [u64.shr(word, 8 * p) & 0xFF for p in range(8)]
+    differ = sum(bool((d != d[0]).any()) for d in digits)
+    profiles = {label: _device_ops(lambda: ksort.radix_sort_u64(*planes))
+                for label, planes in inputs.items()}
+    queued_ops = {name: n for name, (n, _) in profiles["2^20"].items()}
+    say(f"phase 12 K11 call [2^20]: the host returned while a queued sleep "
+        f"still ran (no host sync; torch's sync debug mode saw none); device "
+        f"operations {queued_ops or 'not seen by torch.profiler'}; "
+        f"{8 + 16 * differ} B a key of keys moved ({differ} of 8 digits "
+        f"differ); device time by kernel: " + "; ".join(
+            f"[{label}] " + ", ".join(f"{name} {n}x {us / 1e3:.4f} ms"
+                                      for name, (n, us) in ops.items())
+            for label, ops in profiles.items()))
+
+
+def _device_ops(fn) -> dict:
+    """{kernel name or "memset": (count, device us)} of one fn() call,
+    from torch.profiler, after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    ops = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = ("memset" if "memset" in e.name.lower()
+                    else e.name.split("(")[0].split("<")[0])
+            n, us = ops.get(name, (0, 0.0))
+            ops[name] = (n + 1, us + e.time_range.elapsed_us())
+    return ops
 
 
 def _fold_batches(batches, count, merge, empty, capacity: int, k: int,
@@ -909,9 +1028,11 @@ def phase_sharded_compact(stats: dict, workdir: str) -> None:
     from kmers_tpu_torch.parallel.mesh import make_mesh
 
     fastq = os.path.join(workdir, "ecoli_1m.fastq")
-    capacity, batch, length, shards = 1 << 24, 4096, 256, 4
+    capacity, batch, length = 1 << 24, 4096, 256
+    shards, route_capacity = SHARDED_COMPACT
     mesh = make_mesh(devices=[DEVICE] * shards)
-    step = pipeline.make_sharded_counter(mesh, 31, route_capacity=1 << 16,
+    step = pipeline.make_sharded_counter(mesh, 31,
+                                         route_capacity=route_capacity,
                                          packed=True)
     overflow = []
 
@@ -969,6 +1090,8 @@ def phase_sharded_compact(stats: dict, workdir: str) -> None:
     if m_launches["radix_sort_u64"] == 0:
         raise AssertionError("sharded minimizer counter: radix_sort_u64 not "
                              "launched")
+    stats["launches"]["radix_sort_u64"] += (launches["radix_sort_u64"]
+                                            + m_launches["radix_sort_u64"])
     say(f"phase 11 sharded compact, {shards} shards on one card: "
         f"make_sharded_counter {kmers} kmers in {wall:.3f}s = "
         f"{kmers / wall:.4g} kmers/s, peak {peak / 2**20:.1f} MiB, overflow "
@@ -1021,12 +1144,13 @@ def main(argv=None) -> int:
     phase_reference(stats, args.workdir)
     phase_minimizer(stats, args.seed)
     phase_sharded(stats, args.workdir)
-    phase_sort_kernels(stats, args.seed)
+    sort_inputs = phase_sort_kernels(stats, args.seed, args.workdir)
     phase_count_forms(stats, args.workdir)
     for k in (32, 64):
         phase_end_to_end(stats, args.seed, args.workdir, k, 10)
     phase_reference(stats, args.workdir, ks=(32, 64), phase=10)
     phase_sharded_compact(stats, args.workdir)
+    phase_sort_call(sort_inputs)
 
     kernels = []
     for name, r in stats["kernels"].items():

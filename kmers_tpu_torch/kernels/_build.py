@@ -59,8 +59,8 @@ _SIGNATURES = {
     "kt_compress_block": ([], _I),
     "kt_segment_count": ([_P] * 4 + [_LL, _LL, _I, _I] + [_P] * 6, _I),
     "kt_radix_tile": ([], _I),
-    "kt_radix_hist8": ([_P, _P, _LL, _P, _P], _I),
-    "kt_radix_pass": ([_P, _P, _LL, _I, _P, _P, _P, _P, _P], _I),
+    "kt_radix_scratch_bytes": ([_LL], _LL),
+    "kt_radix_sort": ([_P, _P, _LL] + [_P] * 6, _I),
     "kt_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -7,24 +7,39 @@
 // bases and p <= L-k.  Four orders, one template parameter each: mix64
 // (kmers_tpu/core/u64.py mix_hash), mix32 (its low half, mix32_order),
 // mix16 (the top 16 bits of mix32) and lex (the base reversal shifted to
-// w bases, LexHasher).  Ties go to the leftmost candidate: a strict <
-// over the candidates from left to right.  Under mix16 this selects the
-// same lane as the TPU's packed (order16 << 12 | pos) key, without its
-// L <= 4096 limit.  Invalid lanes are zero in every output, as in the
-// plain version (kernels/minimizer.py), so the two agree on every lane.
+// w bases, LexHasher).  Ties go to the leftmost candidate, which under
+// mix16 selects the same lane as the TPU's packed (order16 << 12 | pos)
+// key, without its L <= 4096 limit.  Invalid lanes are zero in every
+// output, as in the plain version (kernels/minimizer.py), so the two agree
+// on every lane.
 //
-// Bound: integer work, not memory.  Per output lane the kernel reads 1
-// byte and writes 13; it does about k byte decodes (validity), w decodes
-// and one order (the w-mer words are shared by W = k-w+1 lanes) and W
-// compares.  The TPU kernel's van Herk/Gil-Werman scan (O(log W) rolled
-// compares) answered a vector unit that pays per roll; here each thread
-// scans its W candidates from shared memory, where the block has staged
-// its row segment plus a (k-1)-byte halo ('N' past the row) and computed
-// every position's w-mer word and order once.
+// Bound: device-memory bytes, 1 read and 13 written per lane, if the
+// integer work per lane is kept to a constant; the card's 32-bit integer
+// rate (64 lanes a clock an SM, half its float rate) is what a heavier
+// lane runs into first.  So no thread loops over k or over the W = k-w+1
+// candidates.  A block owns one 256-lane segment of a row (a whole row at
+// the count batch's L = 256) and has one thread for each byte of the
+// segment and its (k-1)-byte halo ('N' past the row), rounded up to a
+// warp, so that no step takes a second round on some warps.  Each warp
+// reads 32 bytes once and keeps them in shared memory as
+//   - a ballot of the bytes that are not bases: a window is valid iff its
+//     k bits are zero, one funnel shift of at most three words;
+//   - the 2-bit codes, 16 bases a word (an OR over each half-warp): any
+//     w-mer (w <= 32) is a funnel shift of at most three words.
+// Each candidate position's w-mer gets its order once, packed with the
+// position so that the least key is the leftmost minimal order.  A sparse
+// table takes the minimum over W: floor(log2 W) doubling steps in shared
+// memory over all positions, then each lane takes the smaller of two
+// overlapping entries (min is idempotent).  At k=31, w=11 that is four
+// steps and two lookups against 21 dependent compares.
 
 #include "common.cuh"
 
-#define MIN_THREADS 256
+#define MIN_LANES 256
+// 32-byte chunks: the 256 lanes, a halo of up to 63 bytes, and the word a
+// three-word funnel shift reads past the last one
+#define MIN_CHUNKS 11
+#define MIN_FULL 0xFFFFFFFFu
 
 enum { KT_MIX64 = 0, KT_MIX32 = 1, KT_MIX16 = 2, KT_LEX = 3 };
 
@@ -36,59 +51,128 @@ __device__ __forceinline__ u64 kt_wmer_order(u64 wm, int w, u64 seed) {
   return ORDER == KT_MIX32 ? m32 : m32 >> 16;
 }
 
-// Block = one MIN_THREADS-lane segment of one row.  Shared memory: the
-// w-mer words and orders of the n_w = MIN_THREADS + k - w positions the
-// segment's windows read, then the staged bytes.
+// A candidate: its order and its position q in the segment (q < 2^16).
+// a < b iff a's order is smaller, or equal with a to the left.  mix16 and
+// mix32 pack both into one word; the 64-bit orders keep a pair.
 template <int ORDER>
-__global__ void kt_minimizer_kernel(const uint8_t* __restrict__ reads,
-                                    u32* __restrict__ word_hi,
-                                    u32* __restrict__ word_lo,
-                                    int* __restrict__ pos_out,
-                                    uint8_t* __restrict__ valid_out, int L,
-                                    int k, int w, int segs, u64 seed) {
-  extern __shared__ __align__(8) unsigned char smem[];
-  const int n_w = MIN_THREADS + k - w;
-  u64* wword = (u64*)smem;
-  u64* worder = wword + n_w;
-  uint8_t* seg = (uint8_t*)(worder + n_w);
+struct MinCand {
+  u64 order;
+  u32 at;
+  static __device__ __forceinline__ MinCand make(u64 o, u32 q) {
+    return {o, q};
+  }
+  __device__ __forceinline__ u32 pos() const { return at; }
+  __device__ __forceinline__ bool operator<(const MinCand& b) const {
+    return order < b.order || (order == b.order && at < b.at);
+  }
+};
+
+template <>
+struct MinCand<KT_MIX16> {
+  u32 key;
+  static __device__ __forceinline__ MinCand make(u64 o, u32 q) {
+    return {((u32)o << 16) | q};
+  }
+  __device__ __forceinline__ u32 pos() const { return key & 0xFFFFu; }
+  __device__ __forceinline__ bool operator<(const MinCand& b) const {
+    return key < b.key;
+  }
+};
+
+template <>
+struct MinCand<KT_MIX32> {
+  u64 key;
+  static __device__ __forceinline__ MinCand make(u64 o, u32 q) {
+    return {(o << 32) | q};
+  }
+  __device__ __forceinline__ u32 pos() const { return (u32)key & 0xFFFFu; }
+  __device__ __forceinline__ bool operator<(const MinCand& b) const {
+    return key < b.key;
+  }
+};
+
+// Bits [bit, bit + 64) of a little-endian array of u32 words.
+__device__ __forceinline__ u64 kt_bits64(const u32* words, int bit) {
+  const int i = bit >> 5, s = bit & 31;
+  return kt_word(__funnelshift_r(words[i + 1], words[i + 2], s),
+                 __funnelshift_r(words[i], words[i + 1], s));
+}
+
+// Block: n_seg = MIN_LANES + k - 1 threads rounded up to a warp, thread i
+// on byte i of the segment.  Shared memory: two arrays of n_w =
+// MIN_LANES + k - w candidates (the sparse table's ping-pong levels).
+template <int ORDER>
+__global__ void __launch_bounds__(MIN_CHUNKS * 32)
+kt_minimizer_kernel(const uint8_t* __restrict__ reads,
+                    u32* __restrict__ word_hi, u32* __restrict__ word_lo,
+                    int* __restrict__ pos_out, uint8_t* __restrict__ valid_out,
+                    int L, int k, int w, int segs, u64 seed) {
+  typedef MinCand<ORDER> Cand;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ u32 bad[MIN_CHUNKS];           // bit i: byte i is no base
+  __shared__ u32 codes[2 * MIN_CHUNKS];     // 2-bit code of byte i
+  const int n_w = MIN_LANES + k - w;
+  Cand* cur = (Cand*)smem;
+  Cand* nxt = cur + n_w;
   const long long row = blockIdx.x / segs;
-  const int p0 = (int)(blockIdx.x % segs) * MIN_THREADS;
-  kt_stage_segment(reads, seg, row, p0, MIN_THREADS + k - 1, L, 'N');
-  for (int q = threadIdx.x; q < n_w; q += blockDim.x) {
-    u64 wm = 0;
-    for (int i = 0; i < w; ++i) {
-      bool ok;
-      wm |= (u64)kt_code(seg[q + i], &ok) << (2 * i);
+  const int p0 = (int)(blockIdx.x % segs) * MIN_LANES;
+  const int tid = threadIdx.x, lane = tid & 31, chunk = tid >> 5;
+  const uint8_t* rd = reads + row * L;
+
+  {
+    const int p = p0 + tid;
+    bool ok;
+    const u32 code = kt_code(tid < MIN_LANES + k - 1 && p < L ? rd[p] : 'N',
+                             &ok);
+    const u32 nb = __ballot_sync(MIN_FULL, !ok);
+    u32 packed = code << (2 * (lane & 15));
+#pragma unroll
+    for (int s = 1; s < 16; s <<= 1)
+      packed |= __shfl_xor_sync(MIN_FULL, packed, s);
+    if (lane == 0) bad[chunk] = nb;
+    if ((lane & 15) == 0) codes[2 * chunk + (lane >> 4)] = packed;
+    // the words past the block's chunks, which funnel shifts read and mask
+    if (tid < MIN_CHUNKS - (int)(blockDim.x >> 5)) {
+      bad[(blockDim.x >> 5) + tid] = MIN_FULL;
+      codes[2 * (blockDim.x >> 5) + 2 * tid] = 0;
+      codes[2 * (blockDim.x >> 5) + 2 * tid + 1] = 0;
     }
-    wword[q] = wm;
-    worder[q] = kt_wmer_order<ORDER>(wm, w, seed);
   }
   __syncthreads();
 
-  const int t = threadIdx.x;
-  const int p = p0 + t;
-  if (p >= L) return;
-  bool valid = p <= L - k;
-  for (int i = 0; i < k; ++i) {
-    bool ok;
-    kt_code(seg[t + i], &ok);
-    valid &= ok;
-  }
-  int best = 0;
-  u64 best_order = worder[t];
-  for (int j = 1; j <= k - w; ++j) {
-    const u64 o = worder[t + j];
-    if (o < best_order) {
-      best_order = o;
-      best = j;
+  const u64 wmask = w == 32 ? ~0ull : (1ull << (2 * w)) - 1;
+  if (tid < n_w)
+    cur[tid] = Cand::make(
+        kt_wmer_order<ORDER>(kt_bits64(codes, 2 * tid) & wmask, w, seed),
+        tid);
+  __syncthreads();
+  // level s holds the least candidate of [q, q + 2^s), for q <= n_w - 2^s
+  const int W = k - w + 1;
+  const int levels = 31 - __clz(W);
+  for (int s = 0; s < levels; ++s) {
+    const int h = 1 << s;
+    if (tid + 2 * h <= n_w) {
+      const Cand a = cur[tid], b = cur[tid + h];
+      nxt[tid] = b < a ? b : a;
     }
+    __syncthreads();
+    Cand* t = cur;
+    cur = nxt;
+    nxt = t;
   }
-  const long long lane = row * L + p;
-  const u64 wm = valid ? wword[t + best] : 0ull;
-  word_hi[lane] = (u32)(wm >> 32);
-  word_lo[lane] = (u32)wm;
-  pos_out[lane] = valid ? p + best : 0;
-  valid_out[lane] = valid;
+
+  const int p = p0 + tid;
+  if (tid >= MIN_LANES || p >= L) return;
+  const u64 kmask = k == 64 ? ~0ull : (1ull << k) - 1;
+  const bool valid = p <= L - k && (kt_bits64(bad, tid) & kmask) == 0;
+  const Cand a = cur[tid], b = cur[tid + W - (1 << levels)];
+  const int q = (b < a ? b : a).pos();
+  const u64 wm = valid ? kt_bits64(codes, 2 * q) & wmask : 0ull;
+  const long long lane_out = row * L + p;
+  word_hi[lane_out] = (u32)(wm >> 32);
+  word_lo[lane_out] = (u32)wm;
+  pos_out[lane_out] = valid ? p0 + q : 0;
+  valid_out[lane_out] = valid;
 }
 
 template <int ORDER>
@@ -96,11 +180,11 @@ static int kt_minimizer_launch(const void* reads, void* word_hi,
                                void* word_lo, void* pos, void* valid, int B,
                                int L, int k, int w, u64 seed,
                                cudaStream_t stream) {
-  const int segs = (L + MIN_THREADS - 1) / MIN_THREADS;
+  const int segs = (L + MIN_LANES - 1) / MIN_LANES;
   const long long blocks = (long long)B * segs;
-  const size_t n_w = MIN_THREADS + k - w;
-  const size_t smem = 16 * n_w + MIN_THREADS + k - 1;
-  kt_minimizer_kernel<ORDER><<<(unsigned)blocks, MIN_THREADS, smem, stream>>>(
+  const int threads = (MIN_LANES + k - 1 + 31) / 32 * 32;
+  const size_t smem = 2 * (size_t)(MIN_LANES + k - w) * sizeof(MinCand<ORDER>);
+  kt_minimizer_kernel<ORDER><<<(unsigned)blocks, threads, smem, stream>>>(
       (const uint8_t*)reads, (u32*)word_hi, (u32*)word_lo, (int*)pos,
       (uint8_t*)valid, L, k, w, segs, seed);
   return (int)cudaGetLastError();

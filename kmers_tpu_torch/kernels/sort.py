@@ -5,7 +5,7 @@ keys are two flat int32 planes holding uint32 bit patterns, ordered as
 unsigned ``(uint32)hi << 32 | (uint32)lo``; no payload.  The result is
 byte-identical to the bitonic kernel and to ``lax.sort((hi, lo),
 num_keys=2)`` for any n (the TPU kernel needs a power of two >= 512).  On
-the card it is an LSD radix sort (``csrc/sort.cu``).
+the card it is a onesweep LSD radix sort (``csrc/sort.cu``).
 """
 
 from __future__ import annotations
@@ -27,45 +27,28 @@ def radix_sort_u64(hi: torch.Tensor, lo: torch.Tensor) -> tuple:
     """K11: (hi, lo) int32 [n] -> the keys sorted ascending as unsigned
     64-bit values, as new (hi, lo) planes (kmers_tpu/kernels/sort.py:184).
 
-    On the card: one census of all eight digits (one host sync to read
-    it), then an 8-bit LSD pass for each digit on which the keys differ."""
+    On the card, n < 2^30: one census of all eight digits, then an 8-bit
+    onesweep LSD pass for each digit on which the keys differ, planned on
+    the device (no host sync)."""
     n = hi.shape[0] if hi.dim() == 1 else -1
     check_tensor(hi, "hi", torch.int32, (n,))
     check_tensor(lo, "lo", torch.int32, (n,))
     if not on_cuda(hi, lo):
         return radix_sort_u64_plain(hi, lo)
-    if n >= 1 << 31:
-        raise ValueError(f"radix_sort_u64 takes n < 2^31 keys, got {n}")
-    device = hi.device
+    if n >= 1 << 30:
+        raise ValueError(f"radix_sort_u64 takes n < 2^30 keys, got {n}")
     out = (torch.empty_like(hi), torch.empty_like(lo))
     if n == 0:
         return out
-    with torch.cuda.device(device):
+    with torch.cuda.device(hi.device):
         lib = _build.lib()
-        stream = torch.cuda.current_stream().cuda_stream
-        census = torch.zeros(8 * 256, dtype=torch.int64, device=device)
-        _build.check(lib.kt_radix_hist8(hi.data_ptr(), lo.data_ptr(), n,
-                                        census.data_ptr(), stream),
-                     "radix_sort_u64 (census)")
-        count_launch("radix_sort_u64")
-        bins = (census.view(8, 256) > 0).sum(1).tolist()
-        passes = [p for p in range(8) if bins[p] > 1]
-        if not passes:                      # every key is the same
-            out[0].copy_(hi)
-            out[1].copy_(lo)
-            return out
-        tile = lib.kt_radix_tile()
-        hist = torch.empty(256 * (-(-n // tile)), dtype=torch.int32,
-                           device=device)
-        totals = torch.empty(256, dtype=torch.int32, device=device)
         tmp = (torch.empty_like(hi), torch.empty_like(lo))
-        src = (hi, lo)
-        for i, p in enumerate(passes):
-            # ping-pong so that the last pass lands in `out`
-            dst = out if (len(passes) - 1 - i) % 2 == 0 else tmp
-            _build.check(lib.kt_radix_pass(
-                src[0].data_ptr(), src[1].data_ptr(), n, 8 * p,
-                hist.data_ptr(), totals.data_ptr(), dst[0].data_ptr(),
-                dst[1].data_ptr(), stream), "radix_sort_u64")
-            src = dst
+        scratch = torch.empty(lib.kt_radix_scratch_bytes(n), dtype=torch.uint8,
+                              device=hi.device)
+        _build.check(lib.kt_radix_sort(
+            hi.data_ptr(), lo.data_ptr(), n, out[0].data_ptr(),
+            out[1].data_ptr(), tmp[0].data_ptr(), tmp[1].data_ptr(),
+            scratch.data_ptr(), torch.cuda.current_stream().cuda_stream),
+            "radix_sort_u64")
+    count_launch("radix_sort_u64")
     return out

@@ -224,6 +224,31 @@ def test_minimizer_kernel_matches_plain(card, B, L):
                                                               order))
 
 
+@pytest.mark.parametrize("B", [4096, 1024])
+def test_minimizer_kernel_at_the_sharded_batch_shapes(card, B):
+    """K9 at the [B, 256] batches the sharded minimizer runs give it (D = 1
+    and D = 4): rows of one repeated base (every order ties, so the
+    leftmost candidate must win), N at the first and at the last base,
+    k = 64 with w = 1 (the widest candidate window) and k = w."""
+    from kmers_tpu_torch.kernels import minimizer as tkmin
+
+    rng = np.random.default_rng(B)
+    reads = np.frombuffer(b"ACGTacgt", dtype=np.uint8)[
+        rng.integers(0, 8, size=(B, 256))].copy()
+    for i, base in enumerate(b"ACGTacgt"):
+        reads[i] = base
+    reads[8::7, 0] = ord("N")
+    reads[9::7, -1] = ord("N")
+    reads[10::7, 100:103] = ord("N")
+    r = torch.from_numpy(reads).to(card)
+    for order in tkmin.ORDERS:
+        for k, w in ((31, 11), (64, 1), (31, 31), (32, 32), (64, 32)):
+            for seed in (0, (1 << 40) + 3):
+                assert equal_all(tkmin.minimizer_kernel(r, k, w, seed, order),
+                                 tkmin.minimizer_kernel_plain(r, k, w, seed,
+                                                              order))
+
+
 @pytest.mark.parametrize("partition", ["hash", "minimizer"])
 def test_sharded_count_on_card_gives_the_reference_table(card, tmp_path,
                                                          partition):
@@ -307,6 +332,37 @@ def test_radix_sort_kernel_matches_plain(card, n):
     same = u64.split_word(torch.full((n,), 12345, device=card,
                                      dtype=torch.int64))
     for hi, lo in (u64.split_word(full), flagged, short, same):
+        assert equal_all(tsort.radix_sort_u64(hi, lo),
+                         tsort.radix_sort_u64_plain(hi, lo))
+
+
+@pytest.mark.parametrize("tiles,extra", [(1, -1), (1, 0), (1, 1), (37, 1),
+                                         (0, 1 << 24)])
+def test_radix_sort_kernel_digit_layouts(card, tiles, extra):
+    """K11 at n on and off its tile (tiles * tile + extra keys) and at 2^24
+    keys, for the digit layouts that choose its passes: keys that
+    differ in one byte only (each byte in turn), or only at bit 63 (one
+    pass), in three bytes (an odd number of passes), and full-width keys
+    with duplicates (eight passes; a pass that is not stable breaks
+    them)."""
+    from kmers_tpu_torch.kernels import _build
+    from kmers_tpu_torch.kernels import sort as tsort
+
+    n = tiles * _build.lib().kt_radix_tile() + extra
+    g = torch.Generator(device=card).manual_seed(n)
+    rand = lambda bits: torch.randint(0, 1 << bits, (n,), device=card,
+                                      generator=g)
+    base = 0x0123456789ABCDEF
+    layouts = [base ^ (rand(8) << (8 * b)) for b in range(7)]
+    layouts.append(base ^ u64.shl(rand(8), 56))
+    layouts.append(base | torch.where(rand(1) == 1, u64.SIGN_BIT, 0))
+    layouts.append(base ^ (rand(8) << 8) ^ (rand(8) << 32) ^ (rand(7) << 56))
+    full = torch.randint(-(1 << 63), (1 << 63) - 1, (n,), device=card,
+                         generator=g)
+    full[: n // 4] = full[n // 2: n // 2 + n // 4]
+    layouts.append(full)
+    for words in layouts:
+        hi, lo = u64.split_word(words)
         assert equal_all(tsort.radix_sort_u64(hi, lo),
                          tsort.radix_sort_u64_plain(hi, lo))
 
