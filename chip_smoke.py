@@ -10,8 +10,8 @@ the exit code is non-zero):
   1. device: the card's name and power limit; build the kernels.
   2. kernels: the hash emitters K5 and K8 driven once as bench.py's step
      (their launch counts), then each CUDA kernel against its plain
-     PyTorch version on the card at main-path shapes, bit for bit; median
-     times of both.
+     PyTorch version on the card at main-path shapes, bit for bit (K1 also
+     at [1001, 288]); median times of both.
   3. end to end, k=31: `count` on a seeded E. coli-scale read set
      (4,641,652 bp genome, 1,000,000 reads of 150 bp), capacity 2^24,
      packed ingest; the table must equal an independent torch.unique
@@ -39,8 +39,9 @@ the exit code is non-zero):
      have zero routing overflow, save the table of phase 3's single-device
      count (npz_digest), and launch K3 and K4 (and K9 under the minimizer
      partition).
-  8. K10 (narrow and wide) and K11 against their plain versions on the
-     count forms' keys, timed (K11 beside torch.sort at the 2^18 keys of a
+  8. K10 (narrow and wide, every segment size from 8 to 4096) and K11
+     against their plain versions on the count forms' keys, timed (K10 at
+     segments of 64 and 1024; K11 beside torch.sort at the 2^18 keys of a
      phase-11 shard, 2^20, 2^24 and 1,000,003 keys).
   9. the 1M-read set through the compact (K11) and run-length (K10)
      batch tables, folded every 16 batches: each table equals phase 3's /
@@ -51,7 +52,8 @@ the exit code is non-zero):
  12. one K11 call on phase 8's 2^20 keys: whether the host waits for the
      card in it, the device operations it queues and the key bytes it
      moves; then the device time of each of its kernels at every phase-8
-     size (torch.profiler, last so that it cannot skew the walls above).
+     size, and of one K1 and K10 (seg 64) call at their timed shapes
+     (torch.profiler, last so that it cannot skew the walls above).
 
 The last three lines: `nvidia-smi` name and power limit, a JSON object
 of the kernels' launches, errors and times, and
@@ -77,12 +79,14 @@ DEVICE = "cuda"
 # main-path shapes: window batch [B, L], the hash emitters' batch
 # (bench.py's and bench_configs.py's), merge sides, compress lanes, and
 # the end-to-end read count (1M reads of 150 bp on a 4.6 Mbp genome)
-SIZES = dict(window=(4096, 256), hash=(2048, 1024), merge=1 << 24,
+SIZES = dict(window=(4096, 256), window_odd=(1001, 288), hash=(2048, 1024),
+             merge=1 << 24,
              compress=1 << 25, reads=1_000_000, short_reads=100_000,
              genome=4_641_652, sort_big=1 << 24, odd=1_000_003)
 # the least time of a kernel: the bytes it must move (each input read
 # once, each output written once) at the H100 SXM's HBM3 rate, 3.35 TB/s
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
+PROFILED_CALLS = 20                # calls phase 12 profiles a kernel over
 
 KERNEL_INFO = {
     "pack_canonical_keys_packed": ("kmers_tpu_torch/kernels/csrc/window.cu",
@@ -142,8 +146,10 @@ def time_ms(fn, reps: int = 10) -> float:
     A queued torch.cuda._sleep keeps the card busy while the host enqueues
     the start event and fn's launches, so the events bracket device work
     and not the host's launch overhead (which for K1 is several times its
-    9 us of device time).  A plain version that syncs inside (nonzero)
-    still pays its host gap: that is its real cost."""
+    device time).  The events' own cost, a few us, is in every sample;
+    phase 12 gives the profiler's device time beside it for the smallest
+    kernels.  A plain version that syncs inside (nonzero) still pays its
+    host gap: that is its real cost."""
     import torch
 
     fn()
@@ -204,13 +210,19 @@ def phase_device(stats: dict) -> None:
     t0 = time.time()
     info = _build.build()
     _build.lib()
-    ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
     say(f"phase 1 device: {stats['smi']}; kernels "
         f"{'built' if info['built'] else 'up to date'} in "
         f"{time.time() - t0:.1f}s (nvcc {info['seconds']:.1f}s)")
-    for ln in ptxas:
-        say(f"  ptxas: {ln}")
+    # ptxas -v: "Compiling entry function '<name>'", its stack and spill
+    # line, then its registers and shared memory
+    name = spill = ""
+    for ln in info["log"].splitlines():
+        if "Compiling entry function" in ln:
+            name, spill = ln.split("'")[1], ""
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and name:
+            say(f"  ptxas: {name}: {ln.split(':', 1)[1].strip()}; {spill}")
 
 
 def phase_kernels(stats: dict, seed: int) -> None:
@@ -239,6 +251,15 @@ def phase_kernels(stats: dict, seed: int) -> None:
             kwin.pack_canonical_keys_packed_plain(words, vbits, k)))
         e2 = max(e2, max_abs_err(kwin.pack_canonical_keys(reads, k),
                                  kwin.pack_canonical_keys_plain(reads, k)))
+    # K1 also at a row length off its 256-lane chunk, rows off its 8-row
+    # block (reads of their own seed: the later kernels' inputs stay put)
+    odd_np = fastx.pack_batch_np(seeded_reads(
+        np.random.RandomState(seed + 1), *SIZES["window_odd"]))
+    odd_w, odd_v = (torch.from_numpy(a.view(np.int32)).to(dev) for a in odd_np)
+    for k in (1, 15, 16, 17, 31):
+        e1 = max(e1, max_abs_err(
+            kwin.pack_canonical_keys_packed(odd_w, odd_v, k),
+            kwin.pack_canonical_keys_packed_plain(odd_w, odd_v, k)))
     res["pack_canonical_keys_packed"] = dict(
         max_abs_err=e1,
         ms=time_ms(lambda: kwin.pack_canonical_keys_packed(words, vbits, 31)),
@@ -246,6 +267,8 @@ def phase_kernels(stats: dict, seed: int) -> None:
             lambda: kwin.pack_canonical_keys_packed_plain(words, vbits, 31)),
         bound_ms=bound_ms(nbytes(words, vbits, *kwin.pack_canonical_keys_packed(
             words, vbits, 31))), library_ms=None)
+    stats["profiled"]["pack_canonical_keys_packed [4096, 256]"] = (
+        lambda: kwin.pack_canonical_keys_packed(words, vbits, 31))
     res["pack_canonical_keys"] = dict(
         max_abs_err=e2,
         ms=time_ms(lambda: kwin.pack_canonical_keys(reads, 31)),
@@ -783,7 +806,8 @@ def phase_sort_kernels(stats: dict, seed: int, workdir: str) -> dict:
     """Phase 8: K10 (narrow and wide) and K11 bit for bit against their
     plain versions, on the keys the count forms give them: a [4096, 256]
     batch's folded canonical keys at k=31 and k=63 (2^20 lanes, and the
-    first 1,000,003 of them, off the block size), the compact form's sort
+    first 1,000,003 of them, off the block size; K10 at every segment size
+    it takes, timed at 64 and 1024 lanes), the compact form's sort
     keys at k=31 (2^20), one phase-11 shard's keys (2^18), and 2^24 and
     1,000,003 seeded 64-bit keys with duplicates and flagged lanes; median
     times, and torch.sort's for K11.  Returns K11's inputs by label."""
@@ -809,16 +833,28 @@ def phase_sort_kernels(stats: dict, seed: int, workdir: str) -> dict:
             ("segment_count_keys_wide", kct.segment_count_keys_wide,
              u128.fold_invalid(whi.reshape(-1), wlo.reshape(-1),
                                wvalid.reshape(-1)))):
-        plain = lambda ps: kct.segment_count_plain(ps, 64, 1 << 14)
-        err = max(max_abs_err(fn(*ps), plain(ps))
+        # every segment size the kernel takes, 2^20 lanes and 1,000,003;
+        # timed at the count path's 64 (count_words_segmented) and at 1024
+        err = max(max_abs_err(fn(*ps, seg_lanes=seg, block_lanes=1 << 14),
+                              kct.segment_count_plain(ps, seg, 1 << 14))
+                  for seg in kct.CARD_SEG_LANES
                   for ps in (planes, tuple(p[:odd] for p in planes)))
-        res[name] = dict(
-            max_abs_err=err, ms=time_ms(lambda: fn(*planes)),
-            plain_ms=time_ms(lambda: plain(planes)),
-            bound_ms=bound_ms(nbytes(*planes, *fn(*planes))),
-            library_ms=None)
-        notes.append(f"{name} [{planes[0].shape[0]}] {res[name]['ms']:.3f} "
-                     f"ms (plain {res[name]['plain_ms']:.3f})")
+        times = {}
+        for seg in (64, 1024):
+            run = lambda: fn(*planes, seg_lanes=seg, block_lanes=1 << 14)
+            times[seg] = (time_ms(run), time_ms(
+                lambda: kct.segment_count_plain(planes, seg, 1 << 14)),
+                bound_ms(nbytes(*planes, *run())))
+        stats["profiled"][f"{name} seg 64"] = (
+            lambda fn=fn, planes=planes: fn(*planes, seg_lanes=64,
+                                             block_lanes=1 << 14))
+        ms, plain_ms, bound = times[64]
+        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound, library_ms=None, sizes=times)
+        notes.append(f"{name} [{planes[0].shape[0]}] seg_lanes "
+                     f"{kct.CARD_SEG_LANES}; " + ", ".join(
+                         f"seg {seg} {t[0]:.4f} ms (plain {t[1]:.3f}, bound "
+                         f"{t[2]:.4f})" for seg, t in times.items()))
 
     # K11: the compact batch's sort keys (word | invalid flag), then 2^24
     # seeded keys below 2^62, a quarter duplicated, a tenth flagged
@@ -922,6 +958,22 @@ def _device_ops(fn) -> dict:
             n, us = ops.get(name, (0, 0.0))
             ops[name] = (n + 1, us + e.time_range.elapsed_us())
     return ops
+
+
+def phase_profiled(stats: dict) -> None:
+    """Phase 12, last: the device time of one call of the smallest kernels
+    (K1, K10 at seg 64), as torch.profiler records it over PROFILED_CALLS
+    calls: the kernel alone, without the few us that two CUDA events add
+    to every time_ms sample."""
+    def per_call_ms(fn) -> float:
+        ops = _device_ops(lambda: [fn() for _ in range(PROFILED_CALLS)])
+        if not ops:
+            raise AssertionError("torch.profiler saw no device operation")
+        return sum(us for _, us in ops.values()) / PROFILED_CALLS / 1e3
+
+    say("phase 12 profiler device time a call: " + "; ".join(
+        f"{label} {per_call_ms(fn):.5f} ms"
+        for label, fn in stats["profiled"].items()))
 
 
 def _fold_batches(batches, count, merge, empty, capacity: int, k: int,
@@ -1136,7 +1188,7 @@ def main(argv=None) -> int:
     import kmers_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     os.makedirs(args.workdir, exist_ok=True)
-    stats = {"kernels": {}, "launches": {}}
+    stats = {"kernels": {}, "launches": {}, "profiled": {}}
     phase_device(stats)
     phase_kernels(stats, args.seed)
     phase_end_to_end(stats, args.seed, args.workdir, 31, 3)
@@ -1151,6 +1203,7 @@ def main(argv=None) -> int:
     phase_reference(stats, args.workdir, ks=(32, 64), phase=10)
     phase_sharded_compact(stats, args.workdir)
     phase_sort_call(sort_inputs)
+    phase_profiled(stats)
 
     kernels = []
     for name, r in stats["kernels"].items():

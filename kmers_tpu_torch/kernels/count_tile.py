@@ -11,8 +11,11 @@ seg_lanes segment the keys ascend as unsigned words over the planes,
 valid first; counts hold the run length at run starts and 0 elsewhere;
 invalid lanes are zero.  It is NOT globally sorted: a key owns one run
 per segment it appears in, so only a merge (count.merge_many) makes it
-exact.  CUDA source: ``csrc/count_tile.cu`` (one template on the plane
-count).
+exact.  Segments are powers of two from 8 lanes to block_lanes; the CUDA
+kernel sorts a segment within one thread block, so on the card they stop
+at SEG_LANES_MAX (JAX on a TPU takes any up to block_lanes; no caller
+passes more than 1024).  CUDA source: ``csrc/count_tile.cu`` (one
+template on the plane count and the segment size).
 """
 
 from __future__ import annotations
@@ -24,7 +27,9 @@ from . import _build, check_tensor, count_launch, on_cuda
 
 INVALID_HI = 0x80000000
 _INVALID_HI_I32 = INVALID_HI - (1 << 32)
-CARD_SEG_LANES = (32, 64, 128, 256)      # the segment sizes the kernel takes
+SEG_LANES_MAX = 4096                     # csrc/count_tile.cu's SC_MAX_SEG
+# the segment sizes the CUDA kernel takes
+CARD_SEG_LANES = tuple(1 << i for i in range(3, SEG_LANES_MAX.bit_length()))
 
 
 def _check_sizes(seg_lanes: int, block_lanes: int) -> None:
@@ -33,6 +38,14 @@ def _check_sizes(seg_lanes: int, block_lanes: int) -> None:
             and block_lanes % seg_lanes == 0):
         raise ValueError(f"seg_lanes={seg_lanes}, block_lanes={block_lanes}: "
                          "need powers of two, 8 <= seg_lanes <= block_lanes")
+
+
+def check_card_seg_lanes(seg_lanes: int, name: str) -> None:
+    """Raise past the largest segment the CUDA kernel sorts."""
+    if seg_lanes > SEG_LANES_MAX:
+        raise ValueError(f"{name}: the CUDA kernel sorts segments of at most "
+                         f"SEG_LANES_MAX = {SEG_LANES_MAX} lanes, got "
+                         f"seg_lanes={seg_lanes}")
 
 
 def _padded(planes: tuple, n_pad: int) -> list:
@@ -89,9 +102,7 @@ def _segment_count(planes: tuple, seg_lanes: int, block_lanes: int,
         check_tensor(p, f"plane {i}", torch.int32, (n,))
     if not on_cuda(*planes):
         return segment_count_plain(planes, seg_lanes, block_lanes)
-    if seg_lanes not in CARD_SEG_LANES:
-        raise ValueError(f"{name}: the CUDA kernel takes seg_lanes in "
-                         f"{CARD_SEG_LANES}, got {seg_lanes}")
+    check_card_seg_lanes(seg_lanes, name)
     n_pad = -(-n // block_lanes) * block_lanes
     device = planes[0].device
     out = [torch.empty(n_pad, dtype=torch.int32, device=device)
@@ -109,17 +120,19 @@ def _segment_count(planes: tuple, seg_lanes: int, block_lanes: int,
 
 
 def segment_count_keys(key_hi: torch.Tensor, key_lo: torch.Tensor,
-                       seg_lanes: int = 64, block_lanes: int = 1 << 14):
+                       seg_lanes: int = 1 << 10, block_lanes: int = 1 << 14):
     """K10, two planes (k <= 31): (keys_hi, keys_lo, counts), int32 [n_pad]
-    each (kmers_tpu/kernels/count_tile.py:234)."""
+    each (kmers_tpu/kernels/count_tile.py:234, with its defaults)."""
     return _segment_count((key_hi, key_lo), seg_lanes, block_lanes,
                           "segment_count_keys")
 
 
 def segment_count_keys_wide(key_hh: torch.Tensor, key_hl: torch.Tensor,
                             key_lh: torch.Tensor, key_ll: torch.Tensor,
-                            seg_lanes: int = 64, block_lanes: int = 1 << 14):
+                            seg_lanes: int = 1 << 6,
+                            block_lanes: int = 1 << 14):
     """K10, four planes (33 <= k <= 63): (hh, hl, lh, ll, counts), int32
-    [n_pad] each (kmers_tpu/kernels/count_tile.py:262)."""
+    [n_pad] each (kmers_tpu/kernels/count_tile.py:262, with its
+    defaults)."""
     return _segment_count((key_hh, key_hl, key_lh, key_ll), seg_lanes,
                           block_lanes, "segment_count_keys_wide")

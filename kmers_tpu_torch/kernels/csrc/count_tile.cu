@@ -5,29 +5,52 @@
 // both _segment_count -> _count_tile_kernel.  Keys are NP uint32 planes,
 // plane 0 most significant, with the invalid flag folded into bit 31 of
 // plane 0 (an invalid lane is exactly (0x80000000, 0[, 0, 0])).  For each
-// S-lane segment (S = seg_lanes) of the n_pad output lanes (n_pad = n
-// rounded up to block_lanes; lanes past n are invalid): the segment's keys
-// ascending, valid first; counts = the run length at each run start and 0
-// elsewhere; invalid lanes all zero (keys & valid mask, so the flag is
-// cleared too).  Run boundaries are the run starts and the first invalid
-// lane (count_tile.py:171-191).
+// S-lane segment (S = seg_lanes, a power of two, 8 <= S <= SC_MAX_SEG) of
+// the n_pad output lanes (n_pad = n rounded up to block_lanes; lanes past
+// n are invalid): the segment's keys ascending, valid first; counts = the
+// run length at each run start and 0 elsewhere; invalid lanes all zero
+// (keys & valid mask, so the flag is cleared too).  Run boundaries are the
+// run starts and the first invalid lane (count_tile.py:171-191).
 //
 // Bound: device-memory bytes, 4 NP bytes in and 4 (NP + 1) out a lane (20
-// B narrow, 36 B wide) against ~log2(S)^2 / 2 compare-exchanges a lane.
-// The TPU kernel sorted many segments at once in one [rows, 128] block
-// with rolls and selects, because Mosaic pays per vector op.  Here one
-// warp owns one segment: ITEMS = S / 32 keys a thread in registers, element
-// e = j * 32 + lane.  A bitonic stage at stride s < 32 exchanges through
-// __shfl_xor_sync, a stage at s >= 32 swaps two registers of one thread;
-// direction from (e & kk), as the TPU network.  Run starts compare each
-// element with element e - 1 (a shuffle up; lane 0 takes lane 31 of the
-// previous register), and each start finds the next boundary in the
-// warp's ballot masks with __ffs.  Keys never leave registers between the
-// one coalesced read and the one coalesced write.
+// B narrow, 36 B wide), against log2(S) (log2(S) + 1) / 4 compare-exchanges
+// a lane (10.5 at S = 64).  The TPU kernel sorted many segments at once in
+// one [rows, 128] block with rolls and selects, because Mosaic pays per
+// vector op.
+//
+// The first port (one warp a segment, S / 32 keys a thread in striped
+// order) spent its time in a dependent chain: 20 of its 21 bitonic stages
+// at S = 64 crossed lanes, each a __shfl_xor_sync per 32-bit half, a
+// compare and a select, with only two keys a thread to hide the shuffle
+// latency; it took only S in 32 .. 256.
+//
+// This design: blocked order, SC_ITEMS = 8 keys a thread, elements e =
+// 8 t .. 8 t + 7 of its segment, loaded with 16-byte vector loads.  The
+// network is the bitonic sorter in its all-ascending form: merge level kk
+// first compares e with e ^ (kk - 1) (the "flip"), then e with e ^ s for
+// s = kk / 4 .. 1, the smaller key always to the lower element.  A stage
+// with stride below 8 is a compare-exchange between two registers of one
+// thread; a stage with stride 8 .. 255 exchanges whole registers with the
+// partner lane (__shfl_xor_sync, 8 independent keys a stage, each lane of
+// the pair keeping the min or the max); at S = 64 that is 6 lane-crossing
+// stages of 21 instead of 20.  Segments of more than 256 lanes span the
+// warps of one block (up to 512 threads), and their strides of 256 and
+// more exchange through shared memory between two barriers.  128-bit keys
+// compare as unsigned __int128, one chain of extended compares.  Run
+// starts compare each key with its predecessor (in the thread, or the
+// previous lane's last key by __shfl_up_sync, or the previous warp's
+// through shared memory); each start finds the next boundary in its
+// thread's 8-bit boundary mask, else in the first later lane of the
+// segment that has one (a ballot, __ffs and one __shfl_sync), else in the
+// first later warp's (shared memory).  Each output plane goes through the
+// warp's staging area in shared memory, so that every 16-byte store of a
+// warp covers 512 contiguous bytes.  The 21 stages' compares and selects,
+// not the bytes, still set the time (PERF.md).
 
 #include "common.cuh"
 
-#define SC_WARPS 8
+#define SC_ITEMS 8                   // keys a thread, consecutive lanes
+#define SC_MAX_SEG 4096              // the largest segment (512 threads)
 #define SC_FULL 0xFFFFFFFFu
 
 template <int N> struct SCIn { const u32* p[N]; };
@@ -36,12 +59,15 @@ template <int N> struct SCOut { u32* p[N]; };
 // NP planes as NP / 2 64-bit words, most significant first.
 template <int NP> struct SKey { u64 w[NP / 2]; };
 
+// one chain of extended compares for 128-bit keys
 template <int NP>
 __device__ __forceinline__ bool skey_lt(const SKey<NP>& a, const SKey<NP>& b) {
-#pragma unroll
-  for (int q = 0; q + 1 < NP / 2; ++q)
-    if (a.w[q] != b.w[q]) return a.w[q] < b.w[q];
-  return a.w[NP / 2 - 1] < b.w[NP / 2 - 1];
+  if constexpr (NP == 2) {
+    return a.w[0] < b.w[0];
+  } else {
+    typedef unsigned __int128 u128;
+    return ((u128)a.w[0] << 64 | a.w[1]) < ((u128)b.w[0] << 64 | b.w[1]);
+  }
 }
 
 template <int NP>
@@ -52,11 +78,33 @@ __device__ __forceinline__ bool skey_eq(const SKey<NP>& a, const SKey<NP>& b) {
   return eq;
 }
 
+// a, b = min(a, b), max(a, b)
+template <int NP>
+__device__ __forceinline__ void skey_cmpx(SKey<NP>& a, SKey<NP>& b) {
+  const bool swap = skey_lt<NP>(b, a);
+#pragma unroll
+  for (int q = 0; q < NP / 2; ++q) {
+    const u64 x = a.w[q], y = b.w[q];
+    a.w[q] = swap ? y : x;
+    b.w[q] = swap ? x : y;
+  }
+}
+
+// min(a, p) when low, else max(a, p); equal keys are interchangeable
+template <int NP>
+__device__ __forceinline__ void skey_keep(SKey<NP>& a, const SKey<NP>& p,
+                                          bool low) {
+  const bool take = skey_lt<NP>(p, a) == low;
+#pragma unroll
+  for (int q = 0; q < NP / 2; ++q) a.w[q] = take ? p.w[q] : a.w[q];
+}
+
 template <int NP>
 __device__ __forceinline__ SKey<NP> skey_xor(const SKey<NP>& a, int m) {
   SKey<NP> r;
 #pragma unroll
-  for (int q = 0; q < NP / 2; ++q) r.w[q] = __shfl_xor_sync(SC_FULL, a.w[q], m);
+  for (int q = 0; q < NP / 2; ++q)
+    r.w[q] = __shfl_xor_sync(SC_FULL, a.w[q], m);
   return r;
 }
 
@@ -64,128 +112,260 @@ template <int NP>
 __device__ __forceinline__ SKey<NP> skey_up1(const SKey<NP>& a) {
   SKey<NP> r;
 #pragma unroll
-  for (int q = 0; q < NP / 2; ++q) r.w[q] = __shfl_up_sync(SC_FULL, a.w[q], 1);
+  for (int q = 0; q < NP / 2; ++q)
+    r.w[q] = __shfl_up_sync(SC_FULL, a.w[q], 1);
   return r;
 }
 
-template <int NP>
-__device__ __forceinline__ SKey<NP> skey_lane(const SKey<NP>& a, int src) {
-  SKey<NP> r;
-#pragma unroll
-  for (int q = 0; q < NP / 2; ++q) r.w[q] = __shfl_sync(SC_FULL, a.w[q], src);
-  return r;
+__host__ __device__ constexpr int sc_log2(int x) {
+  return x <= 1 ? 0 : 1 + sc_log2(x >> 1);
 }
 
-template <int NP, int ITEMS>
-__global__ void __launch_bounds__(SC_WARPS * 32)
-kt_segment_count_kernel(SCIn<NP> in, long long n, long long n_seg,
-                        SCOut<NP> out, int* __restrict__ counts) {
-  constexpr int S = 32 * ITEMS;
-  constexpr int LOG_S = ITEMS == 1 ? 5 : ITEMS == 2 ? 6 : ITEMS == 4 ? 7 : 8;
-  const int lane = threadIdx.x & 31;
-  const long long seg = (long long)blockIdx.x * SC_WARPS + (threadIdx.x >> 5);
-  if (seg >= n_seg) return;                  // the whole warp leaves
-  const long long base = seg * S;
+// Launch shape of segment size S: TPS threads a segment, BT a block (at
+// least 256), MULTI when a segment spans warps.  Shared memory: each
+// warp's 256 output lanes of one plane, staged for coalesced stores; for
+// MULTI the exchange buffer in the same place (NP / 2 words of SC_ITEMS
+// keys a thread), then each warp's last key and first boundary.  MIN_BLOCKS
+// caps a wide segment of one warp at 64 registers, so that the 131,072
+// threads of 2^20 lanes are one wave on 132 SMs.
+template <int NP, int S> struct SCShape {
+  static constexpr int TPS = S / SC_ITEMS;
+  static constexpr int BT = TPS > 256 ? TPS : 256;
+  static constexpr int NW = BT / 32;
+  static constexpr bool MULTI = TPS > 32;
+  static constexpr int MIN_BLOCKS = NP == 4 && !MULTI ? 4 : 1;
+  static constexpr int XCH = MULTI ? BT * SC_ITEMS * (NP / 2) : 0;  // u64
+  static constexpr size_t SMEM = MULTI
+      ? (size_t)(XCH + NW * (NP / 2)) * 8 + NW * 4
+      : (size_t)BT * SC_ITEMS * 4;
+};
 
-  SKey<NP> v[ITEMS];
+// One lane-crossing stage: v[j] keeps the min (low) or max of itself and
+// the partner thread's (tid ^ m) item j, or item I - 1 - j (FLIP).
+template <int NP, int S, bool FLIP, int I>
+__device__ __forceinline__ void sc_exchange(SKey<NP> (&v)[I], int m,
+                                            bool low, u64* xch) {
+  if (!SCShape<NP, S>::MULTI || m < 32) {
+    // a pair (j, I-1-j) at a time under FLIP, one item otherwise: few
+    // partner keys live at once
 #pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    const long long i = base + j * 32 + lane;
+    for (int j = 0; j < (FLIP ? I / 2 : I); ++j) {
+      const SKey<NP> pj = skey_xor<NP>(v[FLIP ? I - 1 - j : j], m);
+      if (FLIP) {
+        const SKey<NP> pk = skey_xor<NP>(v[j], m);
+        skey_keep<NP>(v[I - 1 - j], pk, low);
+      }
+      skey_keep<NP>(v[j], pj, low);
+    }
+    return;
+  }
+  constexpr int BT = SCShape<NP, S>::BT;
+  const int t = threadIdx.x;
+  SKey<NP> p[I];
+#pragma unroll
+  for (int j = 0; j < I; ++j)
+#pragma unroll
+    for (int q = 0; q < NP / 2; ++q) xch[(q * I + j) * BT + t] = v[j].w[q];
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < I; ++j)
 #pragma unroll
     for (int q = 0; q < NP / 2; ++q)
-      v[j].w[q] = i < n ? kt_word(in.p[2 * q][i], in.p[2 * q + 1][i])
-                        : (q == 0 ? (u64)KT_INVALID_HI << 32 : 0ull);
+      p[j].w[q] = xch[(q * I + (FLIP ? I - 1 - j : j)) * BT + (t ^ m)];
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < I; ++j) skey_keep<NP>(v[j], p[j], low);
+}
+
+// One tile of BT * SC_ITEMS lanes a block.  No early exit: every lane of a
+// warp shuffles, and MULTI blocks meet at barriers.
+template <int NP, int S>
+__global__ void __launch_bounds__(SCShape<NP, S>::BT,
+                                  SCShape<NP, S>::MIN_BLOCKS)
+kt_segment_count_kernel(SCIn<NP> in, long long n, long long n_pad,
+                        bool aligned, SCOut<NP> out,
+                        int* __restrict__ counts) {
+  using Sh = SCShape<NP, S>;
+  constexpr int I = SC_ITEMS, TPS = Sh::TPS, LOG_S = sc_log2(S);
+  extern __shared__ u64 sc_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ts = tid & (TPS - 1);                      // thread in segment
+  const int e0 = ts * I;                               // its first element
+  const long long base = ((long long)blockIdx.x * Sh::BT + tid) * I;
+
+  // load: 16-byte vectors where the thread's lanes all lie below n, else
+  // one by one (invalid past n)
+  SKey<NP> v[I];
+  {
+    u32 x[NP][I];
+    const bool vec = aligned && base + I <= n;
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      const u32* src = in.p[q] + base;
+      if (vec) {
+#pragma unroll
+        for (int h = 0; h < I / 4; ++h) {
+          const uint4 t = __ldg(reinterpret_cast<const uint4*>(src) + h);
+          x[q][4 * h] = t.x;
+          x[q][4 * h + 1] = t.y;
+          x[q][4 * h + 2] = t.z;
+          x[q][4 * h + 3] = t.w;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < I; ++j)
+          x[q][j] = base + j < n ? src[j] : (q == 0 ? KT_INVALID_HI : 0u);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < I; ++j)
+#pragma unroll
+      for (int q = 0; q < NP / 2; ++q)
+        v[j].w[q] = kt_word(x[2 * q][j], x[2 * q + 1][j]);
   }
 
-  // bitonic network over the S elements of the segment
+  // bitonic network, all-ascending form
 #pragma unroll
   for (int lk = 1; lk <= LOG_S; ++lk) {
     const int kk = 1 << lk;
+    if (kk <= I) {
 #pragma unroll
-    for (int ls = lk - 1; ls >= 0; --ls) {
+      for (int j = 0; j < I; ++j)
+        if ((j & (kk >> 1)) == 0) skey_cmpx<NP>(v[j], v[j ^ (kk - 1)]);
+    } else {
+      sc_exchange<NP, S, true>(v, kk / I - 1, (ts & (kk / I / 2)) == 0,
+                               sc_smem);
+    }
+#pragma unroll
+    for (int ls = lk - 2; ls >= 0; --ls) {
       const int s = 1 << ls;
-      if (s >= 32) {
-        const int js = s >> 5;
+      if (s < I) {
 #pragma unroll
-        for (int j = 0; j < ITEMS; ++j) {
-          if (j & js) continue;
-          const bool asc = ((j * 32) & kk) == 0;
-          const bool swap = asc ? skey_lt<NP>(v[j | js], v[j])
-                                : skey_lt<NP>(v[j], v[j | js]);
-          if (swap) {
-            const SKey<NP> t = v[j];
-            v[j] = v[j | js];
-            v[j | js] = t;
-          }
-        }
+        for (int j = 0; j < I; ++j)
+          if ((j & s) == 0) skey_cmpx<NP>(v[j], v[j | s]);
       } else {
-#pragma unroll
-        for (int j = 0; j < ITEMS; ++j) {
-          const SKey<NP> p = skey_xor<NP>(v[j], s);
-          const int e = j * 32 + lane;
-          const bool want_small = ((e & s) == 0) == ((e & kk) == 0);
-          const bool take = want_small ? skey_lt<NP>(p, v[j])
-                                       : skey_lt<NP>(v[j], p);
-          if (take) v[j] = p;
-        }
+        sc_exchange<NP, S, false>(v, s / I, (ts & (s / I)) == 0, sc_smem);
       }
     }
   }
 
-  // run starts and boundaries (run starts and invalid lanes)
-  bool start[ITEMS], valid[ITEMS];
-  u32 bmask[ITEMS];
+  // run starts; boundaries = run starts and invalid lanes
+  u64* wlast = sc_smem + Sh::XCH;                      // MULTI only
+  int* wfirst = reinterpret_cast<int*>(wlast + Sh::NW * (NP / 2));
+  SKey<NP> prev = skey_up1<NP>(v[I - 1]);              // previous lane's last
+  if constexpr (Sh::MULTI) {
+    if (lane == 31)
 #pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    const SKey<NP> up = skey_up1<NP>(v[j]);
-    const SKey<NP> carried = skey_lane<NP>(v[j > 0 ? j - 1 : 0], 31);
-    const SKey<NP> prev = lane == 0 ? carried : up;
+      for (int q = 0; q < NP / 2; ++q)
+        wlast[warp * (NP / 2) + q] = v[I - 1].w[q];
+    __syncthreads();
+    if (lane == 0 && ts != 0)
+#pragma unroll
+      for (int q = 0; q < NP / 2; ++q)
+        prev.w[q] = wlast[(warp - 1) * (NP / 2) + q];
+  }
+  bool valid[I], start[I];
+  u32 bnd = 0;
+#pragma unroll
+  for (int j = 0; j < I; ++j) {
     valid[j] = (v[j].w[0] >> 63) == 0;
-    const bool first = j == 0 && lane == 0;
-    start[j] = valid[j] && (first || !skey_eq<NP>(prev, v[j]));
-    bmask[j] = __ballot_sync(SC_FULL, start[j] || !valid[j]);
+    const bool same = j ? skey_eq<NP>(v[j - 1], v[j])
+                        : ts != 0 && skey_eq<NP>(prev, v[j]);
+    start[j] = valid[j] && !same;
+    if (start[j] || !valid[j]) bnd |= 1u << j;
   }
 
+  // the first boundary after this thread's lanes in its segment (S if none)
+  const int first = bnd ? e0 + __ffs(bnd) - 1 : S;
+  const u32 any = __ballot_sync(SC_FULL, bnd != 0);
+  u32 later = lane == 31 ? 0u : SC_FULL << (lane + 1);
+  if constexpr (TPS < 32) later &= ((1u << TPS) - 1) << (lane & ~(TPS - 1));
+  const u32 cand = any & later;
+  int after = __shfl_sync(SC_FULL, first, cand ? __ffs(cand) - 1 : lane);
+  if (!cand) after = S;
+  if constexpr (Sh::MULTI) {
+    const int wf = __shfl_sync(SC_FULL, first, any ? __ffs(any) - 1 : 0);
+    if (lane == 0) wfirst[warp] = any ? wf : S;
+    __syncthreads();
+    constexpr int WPS = TPS / 32;                      // warps a segment
+    if (!cand)
+      for (int w = warp + 1; w <= (warp | (WPS - 1)); ++w)
+        if (wfirst[w] < S) {
+          after = wfirst[w];
+          break;
+        }
+  }
+
+  // outputs, then each plane through the warp's staging area: thread t
+  // writes its I lanes, lane c stores 16-byte chunks c, c + 32, ...
+  u32 o[NP + 1][I];
 #pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    const long long i = base + j * 32 + lane;
-    int count = 0;
-    if (start[j]) {
-      const u32 after = lane == 31 ? 0u : bmask[j] & (SC_FULL << (lane + 1));
-      int nb = S;
-      if (after) {
-        nb = j * 32 + __ffs(after) - 1;
-      } else {
-#pragma unroll
-        for (int jj = ITEMS - 1; jj > j; --jj)
-          if (bmask[jj]) nb = jj * 32 + __ffs(bmask[jj]) - 1;
-      }
-      count = nb - (j * 32 + lane);
-    }
-    counts[i] = count;
+  for (int j = 0; j < I; ++j) {
+    const u32 rest = bnd & ~((2u << j) - 1);           // boundaries after j
+    const int nb = rest ? e0 + __ffs(rest) - 1 : after;
+    o[NP][j] = start[j] ? (u32)(nb - (e0 + j)) : 0u;
 #pragma unroll
     for (int q = 0; q < NP / 2; ++q) {
       const u64 w = valid[j] ? v[j].w[q] : 0ull;
-      out.p[2 * q][i] = (u32)(w >> 32);
-      out.p[2 * q + 1][i] = (u32)w;
+      o[2 * q][j] = (u32)(w >> 32);
+      o[2 * q + 1][j] = (u32)w;
     }
+  }
+  uint4* stage = reinterpret_cast<uint4*>(sc_smem) + warp * (32 * I / 4);
+  const long long wbase = base - (long long)lane * I;  // the warp's first lane
+#pragma unroll
+  for (int q = 0; q <= NP; ++q) {
+#pragma unroll
+    for (int h = 0; h < I / 4; ++h)
+      stage[lane * (I / 4) + h] = make_uint4(o[q][4 * h], o[q][4 * h + 1],
+                                             o[q][4 * h + 2], o[q][4 * h + 3]);
+    __syncwarp();
+    uint4* dst = reinterpret_cast<uint4*>(
+        (q < NP ? out.p[q] : reinterpret_cast<u32*>(counts)) + wbase);
+#pragma unroll
+    for (int h = 0; h < I / 4; ++h) {
+      const int c = lane + 32 * h;
+      if (wbase + 4 * c < n_pad) dst[c] = stage[c];
+    }
+    __syncwarp();
   }
 }
 
-template <int NP, int ITEMS>
+// the largest segment's block fits in an SM's shared memory (227 KB)
+static_assert(SCShape<4, SC_MAX_SEG>::SMEM <= 227 * 1024, "SC_MAX_SEG");
+
+template <int NP, int S>
 static int kt_segment_launch(const void* const* in, long long n,
                              long long n_pad, void* const* out, void* counts,
                              cudaStream_t st) {
+  using Sh = SCShape<NP, S>;
   SCIn<NP> a;
   SCOut<NP> o;
+  bool aligned = true;
   for (int q = 0; q < NP; ++q) {
     a.p[q] = (const u32*)in[q];
     o.p[q] = (u32*)out[q];
+    aligned = aligned && ((uintptr_t)in[q] & 15) == 0;
   }
-  const long long n_seg = n_pad / (32 * ITEMS);
-  const long long blocks = (n_seg + SC_WARPS - 1) / SC_WARPS;
-  kt_segment_count_kernel<NP, ITEMS><<<(unsigned)blocks, SC_WARPS * 32, 0,
-                                       st>>>(a, n, n_seg, o, (int*)counts);
+  if constexpr (Sh::SMEM > 48 * 1024) {
+    // above the static limit once a device (a benign race: both set it)
+    static unsigned long long raised = 0;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= 64) return (int)cudaErrorInvalidDevice;
+    if (!((raised >> dev) & 1)) {
+      err = cudaFuncSetAttribute(kt_segment_count_kernel<NP, S>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)Sh::SMEM);
+      if (err != cudaSuccess) return (int)err;
+      raised |= 1ull << dev;
+    }
+  }
+  const long long per_block = (long long)Sh::BT * SC_ITEMS;
+  const long long blocks = (n_pad + per_block - 1) / per_block;
+  kt_segment_count_kernel<NP, S><<<(unsigned)blocks, Sh::BT, Sh::SMEM, st>>>(
+      a, n, n_pad, aligned, o, (int*)counts);
   return (int)cudaGetLastError();
 }
 
@@ -194,17 +374,19 @@ static int kt_segment_dispatch(const void* const* in, long long n,
                                long long n_pad, int seg_lanes,
                                void* const* out, void* counts,
                                cudaStream_t st) {
+#define SC_CASE(S) \
+  case S: return kt_segment_launch<NP, S>(in, n, n_pad, out, counts, st);
   switch (seg_lanes) {
-    case 32: return kt_segment_launch<NP, 1>(in, n, n_pad, out, counts, st);
-    case 64: return kt_segment_launch<NP, 2>(in, n, n_pad, out, counts, st);
-    case 128: return kt_segment_launch<NP, 4>(in, n, n_pad, out, counts, st);
-    case 256: return kt_segment_launch<NP, 8>(in, n, n_pad, out, counts, st);
+    SC_CASE(8) SC_CASE(16) SC_CASE(32) SC_CASE(64) SC_CASE(128)
+    SC_CASE(256) SC_CASE(512) SC_CASE(1024) SC_CASE(2048) SC_CASE(4096)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef SC_CASE
 }
 
-// n_planes 2 or 4 (pointers past n_planes are ignored); n_pad a multiple
-// of seg_lanes in {32, 64, 128, 256}; outputs n_pad lanes each.
+// n_planes 2 or 4 (pointers past n_planes are ignored); seg_lanes a power
+// of two from 8 to SC_MAX_SEG; n_pad a multiple of seg_lanes; outputs
+// n_pad lanes each, 16-byte aligned.
 KT_EXPORT int kt_segment_count(const void* in0, const void* in1,
                                const void* in2, const void* in3, long long n,
                                long long n_pad, int seg_lanes, int n_planes,

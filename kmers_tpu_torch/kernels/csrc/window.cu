@@ -11,17 +11,30 @@
 // k <= 31.  K5 (k <= 32) emits canon hi/lo, hash hi/lo and a valid byte,
 // the four words zero on invalid lanes (window.py:177-186).
 //
-// All three are bound by device-memory bytes: per output lane they do
-// some 40 (K5: 60) integer operations against 8 (K5: 17) bytes written
-// and 0.5 (K1) or 1 (K2, K5) bytes read.  The design keeps the traffic
-// at that floor: one thread per output lane, so each 32-bit store of a
-// warp is one contiguous 128-byte line; K1 reads the <= 3 code words and
-// <= 2 validity words its window spans, which neighbouring threads share
-// in L1; K2/K5 stage a row segment plus its (k-1)-byte halo in shared
-// memory once, so every input byte crosses device memory once.  The TPU
-// kernel's q-layout, rolls, L % 128 limit and block-row limit were
-// workarounds for Mosaic and have no counterpart here: the unit table is
-// a multiset, so p-order serves it for any L % 32 == 0.
+// All three should be bound by device-memory bytes: 8 (K5: 17) bytes
+// written a lane against 0.375 (K1) or 1 (K2, K5) read.  K2 and K5 run
+// one thread per output lane, so each 32-bit store of a warp is one
+// contiguous 128-byte line, and stage a row segment plus its (k-1)-byte
+// halo in shared memory once, so every input byte crosses device memory
+// once.  The TPU kernel's q-layout, rolls, L % 128 limit and block-row
+// limit were workarounds for Mosaic and have no counterpart here: the
+// unit table is a multiset, so p-order serves it for any L % 32 == 0.
+//
+// K1 first ran one thread a lane too.  Each lane paid a 64-bit division
+// by L for its row, five bounds-checked loads, its window rebuilt from
+// three code words and the 5-step reverse-complement ladder, some 150-200
+// integer instructions a lane.  Now a 2-D grid gives the row (blockIdx.y,
+// a warp a row) and the 256-lane chunk (blockIdx.x): the warp loads the
+// chunk's 16 code words plus 2 of halo and its 8 validity words plus 1 in
+// one coalesced load each, and each thread makes two runs of 4 lanes
+// (from 4 t and from 128 + 4 t), taking each run's 3 + 2 words by
+// __shfl_sync.  It builds a run's first forward word and reverse
+// complement once, then rolls both a base at a time (fw = fw >> 2 |
+// c << 2(k-1), rc = (rc << 2 | 3 - c) & mask), takes min(fw, rc) and tests
+// the k validity bits in a 64-bit funnel of the bitmap words.  Each run is
+// one 16-byte store a plane, so a warp's store covers 512 contiguous
+// bytes: 8 consecutive lanes a thread, stored as two 16-byte halves 32
+// bytes apart, wrote half sectors and were slower than the arithmetic.
 
 #include "common.cuh"
 
@@ -58,36 +71,74 @@ __device__ __forceinline__ u64 kt_window64(const uint8_t* seg, int t, int k,
   return fw;
 }
 
-// K1: one thread per output lane of a [B, L] batch, L % 32 == 0.
-__global__ void kt_pack_keys_packed_kernel(const u32* __restrict__ words,
-                                           const u32* __restrict__ vbits,
-                                           u32* __restrict__ out_hi,
-                                           u32* __restrict__ out_lo,
-                                           long long n_lanes, int L, int k) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n_lanes) return;
-  const long long row = lane / L;
-  const int p = (int)(lane - row * L);
-  const int nw = L / 16, nv = L / 32;
-  const u32* w = words + row * nw;
-  const u32* v = vbits + row * nv;
+#define K1_RUN 4                     // lanes a thread in each half
+#define K1_CHUNK 256                 // lanes a warp: one row's chunk
+#define K1_ROWS 8                    // warps (rows) a block
 
-  // bases p.. from the 96 bits of code words j, j+1, j+2 (zero past the row)
-  const int j = p >> 4, r = p & 15;
-  const u32 w0 = w[j];
-  const u32 w1 = j + 1 < nw ? w[j + 1] : 0u;
-  const u32 w2 = j + 2 < nw ? w[j + 2] : 0u;
-  u64 fw = kt_word(w1, w0) >> (2 * r);
-  if (r) fw |= (u64)w2 << (64 - 2 * r);
-  fw &= (1ull << (2 * k)) - 1;
-
-  // k validity bits from the 64 bits of bitmap words vj, vj+1
-  const int vj = p >> 5, vr = p & 31;
-  const u64 vw = (u64)v[vj] | (vj + 1 < nv ? (u64)v[vj + 1] << 32 : 0ull);
+// K1: a [B, L] batch, L % 32 == 0, 1 <= k <= 31.  Warp (blockIdx.y,
+// threadIdx.y) walks rows; in each it makes the 256-lane chunk blockIdx.x,
+// thread t the 4 lanes from 4 t and the 4 from 128 + 4 t, so that each
+// 16-byte store of the warp covers 512 contiguous bytes.
+__global__ void __launch_bounds__(32 * K1_ROWS)
+kt_pack_keys_packed_kernel(const u32* __restrict__ words,
+                           const u32* __restrict__ vbits,
+                           u32* __restrict__ out_hi, u32* __restrict__ out_lo,
+                           int B, int L, int k) {
+  const int lane = threadIdx.x;
+  const int nw = L >> 4, nv = L >> 5;
+  const int cw0 = blockIdx.x * (K1_CHUNK / 16);
+  const int vw0 = blockIdx.x * (K1_CHUNK / 32);
+  const u64 mask = (1ull << (2 * k)) - 1;
   const u64 need = (1ull << k) - 1;
-  const bool valid = p <= L - k && ((vw >> vr) & need) == need;
+  for (long long row = (long long)blockIdx.y * K1_ROWS + threadIdx.y; row < B;
+       row += (long long)gridDim.y * K1_ROWS) {
+    // the chunk's words plus halo, one coalesced load each (0 past the row)
+    const u32* w = words + row * nw;
+    const u32* v = vbits + row * nv;
+    const u32 my_w = lane < 18 && cw0 + lane < nw ? w[cw0 + lane] : 0u;
+    const u32 my_v = lane < 9 && vw0 + lane < nv ? v[vw0 + lane] : 0u;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c0 = 128 * h + K1_RUN * lane;           // first lane in chunk
+      const int p0 = blockIdx.x * K1_CHUNK + c0;
+      const int j = c0 >> 4, vj = c0 >> 5;             // its words
+      const u32 w0 = __shfl_sync(0xFFFFFFFFu, my_w, j);
+      const u32 w1 = __shfl_sync(0xFFFFFFFFu, my_w, j + 1);
+      const u32 w2 = __shfl_sync(0xFFFFFFFFu, my_w, j + 2);
+      const u64 vw = (u64)__shfl_sync(0xFFFFFFFFu, my_v, vj)
+                     | (u64)__shfl_sync(0xFFFFFFFFu, my_v, vj + 1) << 32;
+      if (p0 >= L) continue;
 
-  kt_fold_canonical(fw, k, valid, out_hi + lane, out_lo + lane);
+      // bases p0 .. p0+31 (a) and from p0+32 (x); bases p0+k .. p0+k+2,
+      // the ones rolled in, in the low 6 bits of nxt (2 <= 2k <= 62)
+      const int sh = 2 * (c0 & 15);
+      const u64 w01 = kt_word(w1, w0);
+      const u64 a = sh ? (w01 >> sh) | ((u64)w2 << (64 - sh)) : w01;
+      const u64 x = w2 >> sh;
+      const u64 nxt = (a >> (2 * k)) | (x << (64 - 2 * k));
+      u64 fw = a & mask;
+      u64 rc = kt_revcomp64(fw, k);
+      const int vq = c0 & 31;
+      u32 hi[K1_RUN], lo[K1_RUN];
+#pragma unroll
+      for (int i = 0; i < K1_RUN; ++i) {
+        if (i) {
+          const u64 c = (nxt >> (2 * (i - 1))) & 3;
+          fw = (fw >> 2) | (c << (2 * k - 2));
+          rc = ((rc << 2) | (3 - c)) & mask;
+        }
+        const bool valid =
+            p0 + i <= L - k && ((vw >> (vq + i)) & need) == need;
+        const u64 canon = fw < rc ? fw : rc;
+        hi[i] = valid ? (u32)(canon >> 32) : KT_INVALID_HI;
+        lo[i] = valid ? (u32)canon : 0u;
+      }
+      *reinterpret_cast<uint4*>(out_hi + row * L + p0) =
+          make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(out_lo + row * L + p0) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+  }
 }
 
 // K2: block = one WIN_THREADS-lane segment of one row; the segment's
@@ -141,12 +192,13 @@ __global__ void kt_pack_hash_ascii_kernel(const uint8_t* __restrict__ reads,
 KT_EXPORT int kt_pack_keys_packed(const void* words, const void* vbits,
                                   void* out_hi, void* out_lo, int B, int L,
                                   int k, void* stream) {
-  const long long n = (long long)B * L;
-  if (n == 0) return 0;
-  const long long blocks = (n + WIN_THREADS - 1) / WIN_THREADS;
-  kt_pack_keys_packed_kernel<<<(unsigned)blocks, WIN_THREADS, 0,
+  if ((long long)B * L == 0) return 0;
+  const long long rows = (B + K1_ROWS - 1) / K1_ROWS;
+  const dim3 grid((L + K1_CHUNK - 1) / K1_CHUNK,
+                  (unsigned)(rows < 65535 ? rows : 65535));
+  kt_pack_keys_packed_kernel<<<grid, dim3(32, K1_ROWS), 0,
                                (cudaStream_t)stream>>>(
-      (const u32*)words, (const u32*)vbits, (u32*)out_hi, (u32*)out_lo, n, L,
+      (const u32*)words, (const u32*)vbits, (u32*)out_hi, (u32*)out_lo, B, L,
       k);
   return (int)cudaGetLastError();
 }

@@ -6,6 +6,9 @@ k in {1, 15, 31, 32, 33, 63, 64}; and the plain versions of the kernels
 K10 (segment count) and K11 (u64 sort) against the Pallas kernels in
 interpret mode and lax.sort.  Integers throughout: exact equality."""
 
+import inspect
+import itertools
+
 import numpy as np
 import pytest
 import jax
@@ -161,10 +164,11 @@ def folded(rng, n, n_planes, k):
 
 @pytest.mark.parametrize("n_planes,k", [(2, 15), (2, 31), (4, 33), (4, 63)])
 @pytest.mark.parametrize("n,seg,blk", [(1500, 64, 1024), (1024, 32, 256),
-                                       (300, 8, 256), (2048, 256, 2048)])
+                                       (300, 8, 256), (2048, 256, 2048),
+                                       (3000, 512, 2048), (5000, 1024, 4096)])
 def test_segment_count_plain_matches_pallas(n_planes, k, n, seg, blk):
     """K10's plain version lane for lane against count_tile.py in
-    interpret mode: n on and off the block size, segments of 8 to 256."""
+    interpret mode: n on and off the block size, segments of 8 to 1024."""
     rng = np.random.default_rng(n + seg + k)
     planes = [p.astype(np.uint32) for p in folded(rng, n, n_planes, k)]
     jfn = (jct.segment_count_keys if n_planes == 2
@@ -179,6 +183,66 @@ def test_segment_count_plain_matches_pallas(n_planes, k, n, seg, blk):
     for g, w in zip(got, want):
         assert g.shape == (-(-n // blk) * blk,)
         np.testing.assert_array_equal(u32(g), np.asarray(w).view(np.uint32))
+
+
+def test_segment_count_defaults_match_jax():
+    """The same call gives the same segments in both packages: seg_lanes
+    1024 narrow and 64 wide, blocks of 2^14 lanes."""
+    want = {"segment_count_keys": (1024, 1 << 14),
+            "segment_count_keys_wide": (64, 1 << 14)}
+    for name, (seg, blk) in want.items():
+        for fn in (getattr(tct, name), getattr(jct, name)):
+            params = inspect.signature(fn).parameters
+            assert (params["seg_lanes"].default,
+                    params["block_lanes"].default) == (seg, blk), name
+
+
+def segments_model(planes, seg, blk):
+    """An independent per-segment count in numpy: each segment's valid
+    keys ascending, then zeros; each run's length at its first lane."""
+    words = np.zeros(len(planes[0]), dtype=object)
+    for p in planes:
+        words = (words << 32) | p.astype(np.uint64).astype(object)
+    n = len(words)
+    n_pad = -(-n // blk) * blk
+    flag = 1 << (32 * len(planes) - 1)
+    words = np.concatenate([words, np.full(n_pad - n, flag, dtype=object)])
+    keys = np.zeros(n_pad, dtype=object)
+    counts = np.zeros(n_pad, dtype=np.int32)
+    for s in range(0, n_pad, seg):
+        vk = sorted(w for w in words[s:s + seg] if w < flag)
+        keys[s:s + len(vk)] = vk
+        i = 0
+        for _, run in itertools.groupby(vk):
+            length = len(list(run))
+            counts[s + i] = length
+            i += length
+    out = [np.array([(w >> (32 * (len(planes) - 1 - i))) & 0xFFFFFFFF
+                     for w in keys], dtype=np.uint32)
+           for i in range(len(planes))]
+    return out + [counts]
+
+
+@pytest.mark.parametrize("seg", [8, 16, 512, 4096, 8192])
+@pytest.mark.parametrize("n_planes,k", [(2, 31), (4, 63)])
+def test_segment_count_sizes_the_card_takes(seg, n_planes, k):
+    """The wrappers take every segment size from 8 up on the CPU (the plain
+    version, here against an independent numpy count); the card's size
+    check passes up to SEG_LANES_MAX = 4096 and names it past."""
+    rng = np.random.default_rng(seg + k)
+    n, blk = 5000, max(seg, 2048)
+    planes = [p.astype(np.uint32) for p in folded(rng, n, n_planes, k)]
+    fn = (tct.segment_count_keys if n_planes == 2
+          else tct.segment_count_keys_wide)
+    got = fn(*(torch.from_numpy(p.view(np.int32)) for p in planes),
+             seg_lanes=seg, block_lanes=blk)
+    for g, w in zip(got, segments_model(planes, seg, blk)):
+        np.testing.assert_array_equal(g.numpy().view(w.dtype), w)
+    if seg <= tct.SEG_LANES_MAX:
+        tct.check_card_seg_lanes(seg, fn.__name__)
+    else:
+        with pytest.raises(ValueError, match="SEG_LANES_MAX = 4096"):
+            tct.check_card_seg_lanes(seg, fn.__name__)
 
 
 @pytest.mark.parametrize("k", [15, 31])

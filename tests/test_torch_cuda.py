@@ -294,22 +294,67 @@ def folded_keys(card, n, n_planes, k, seed, distinct=5000):
     return u128.fold_invalid(hi, lo, valid)
 
 
+def patterned(planes):
+    """The folded planes with their first quarter one valid key, the
+    second all invalid and the third alternating between two keys (whole
+    segments of every size at n >= 16384)."""
+    n = planes[0].shape[0]
+    q = n // 4
+    idx = torch.arange(q, device=planes[0].device)
+    out = []
+    for i, p in enumerate(planes):
+        p = p.clone()
+        p[:q] = i + 1                              # bit 31 of plane 0 clear
+        p[q:2 * q] = -(1 << 31) if i == 0 else 0        # invalid
+        p[2 * q:3 * q] = torch.where(idx % 2 == 0, 7 * i + 5, 7 * i + 6).to(
+            torch.int32)
+        out.append(p)
+    return tuple(out)
+
+
 @pytest.mark.parametrize("n", [0, 1, 777, 16384, 1 << 20, 1_000_003])
 def test_segment_count_kernel_matches_plain(card, n):
-    """K10 narrow (k=31) and wide (k=63) on every output lane, at each
-    segment size the kernel takes, n on and off the block size."""
+    """K10 narrow (k=31) and wide (k=63) on every output lane, at every
+    segment size the kernel takes (8 to SEG_LANES_MAX), n on and off the
+    block size; random keys, and segments of one key, of invalid lanes
+    only and of two alternating keys."""
     from kmers_tpu_torch.kernels import count_tile as tct
 
+    assert tct.CARD_SEG_LANES == tuple(1 << i for i in range(3, 13))
     for n_planes, k, fn in ((2, 31, tct.segment_count_keys),
                             (4, 63, tct.segment_count_keys_wide)):
         planes = folded_keys(card, n, n_planes, k, n + n_planes)
-        for seg in tct.CARD_SEG_LANES:
-            blk = 1 << 14 if n > 4096 else 1024
-            got = fn(*planes, seg_lanes=seg, block_lanes=blk)
-            want = tct.segment_count_plain(planes, seg, blk)
-            assert equal_all(got, want), (n_planes, seg)
-    with pytest.raises(ValueError, match="seg_lanes"):
-        tct.segment_count_keys(*folded_keys(card, 64, 2, 31, 0), seg_lanes=16)
+        for keys in (planes, patterned(planes)):
+            for seg in tct.CARD_SEG_LANES:
+                blk = max(seg, 1 << 14 if n > 4096 else 1024)
+                got = fn(*keys, seg_lanes=seg, block_lanes=blk)
+                want = tct.segment_count_plain(keys, seg, blk)
+                assert equal_all(got, want), (n_planes, seg)
+    with pytest.raises(ValueError, match="SEG_LANES_MAX"):
+        tct.segment_count_keys(*folded_keys(card, 64, 2, 31, 0),
+                               seg_lanes=2 * tct.SEG_LANES_MAX)
+
+
+@pytest.mark.parametrize("B", [13, 1, 524_289])
+def test_packed_window_kernel_matches_plain(card, B):
+    """K1 at L off and on its 256-lane chunk, every k boundary, B not a
+    multiple of the 8 rows a block takes (524,289 rows at L = 32 pass the
+    grid's 65,535 x 8 rows, so warps walk a second row), and runs of N at
+    both row edges."""
+    rng = np.random.default_rng(B)
+    for L in ((32,) if B > 1000 else (32, 64, 256, 288, 1024)):
+        reads = np.frombuffer(b"ACGTacgt", dtype=np.uint8)[
+            rng.integers(0, 8, size=(B, L))].copy()
+        reads[::3, :5] = ord("N")
+        reads[1::3, L - 7:] = ord("N")
+        reads[2::5, L // 2] = ord("N")
+        words, vbits = fastx.pack_batch_np(reads)
+        w = torch.from_numpy(words.view(np.int32)).to(card)
+        v = torch.from_numpy(vbits.view(np.int32)).to(card)
+        for k in (1, 15, 16, 17, 31):
+            assert equal_all(twin.pack_canonical_keys_packed(w, v, k),
+                             twin.pack_canonical_keys_packed_plain(w, v, k)), (
+                L, k)
 
 
 @pytest.mark.parametrize("n", [0, 1, 2, 4095, 4096, 4097, 1 << 20, 1_000_003])
