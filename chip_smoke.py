@@ -49,11 +49,24 @@ the exit code is non-zero):
  10. `count` at k=32 and k=64 (run-length path) against torch.unique,
      and their smoke digests, eviction, stats and query.
  11. the compact sharded counter and minimizer bucketing on 4 shards.
+ 13. the distributed lookup service (runs before phase 12, whose profiler
+     would slow it), both answer arms of make_sharded_lookup (merge: K3
+     with its source-index plane and K4; binary search): bench_configs.py
+     --lookup's table (2^19 keys, capacity 2^20) and 2^20 queries on one
+     shard, and phase 3's table split by owner over four shards of 2^22
+     slots on the one card with 2^20 queries (half present, a quarter
+     random canonical words, a quarter invalid, one whose routing mix is
+     the invalid sentinel); answers equal count.lookup /
+     StreamingCounter.lookup, no overflow, lookup_sharded agrees; walls,
+     median times and queries/s, peak memory.  K3 with idx bit for bit
+     against its plain version at 2^24 + 2^24 and at a shard's lookup
+     shape, timed.
  12. one K11 call on phase 8's 2^20 keys: whether the host waits for the
      card in it, the device operations it queues and the key bytes it
      moves; then the device time of each of its kernels at every phase-8
-     size, and of one K1 and K10 (seg 64) call at their timed shapes
-     (torch.profiler, last so that it cannot skew the walls above).
+     size, and of one K1 and K10 (seg 64), K4 (2^25) and K3 with idx
+     (2^24 + 2^24) call at their timed shapes (torch.profiler, last so
+     that it cannot skew the walls above).
 
 The last three lines: `nvidia-smi` name and power limit, a JSON object
 of the kernels' launches, errors and times, and
@@ -95,6 +108,8 @@ KERNEL_INFO = {
                             "kmers_tpu/kernels/window.py:391"),
     "merge_sorted": ("kmers_tpu_torch/kernels/csrc/merge.cu",
                      "kmers_tpu/kernels/merge.py:127"),
+    "merge_sorted_idx": ("kmers_tpu_torch/kernels/csrc/merge.cu",
+                         "kmers_tpu/kernels/merge.py:127 (with_idx)"),
     "compress_flagged": ("kmers_tpu_torch/kernels/csrc/merge.cu",
                          "kmers_tpu/kernels/merge.py:284"),
     "pack_canonical_hash": ("kmers_tpu_torch/kernels/csrc/window.cu",
@@ -120,6 +135,11 @@ SHARDED_RUNS = (("minimizer", 1, 1 << 16), ("minimizer", 4, 1 << 13),
                 ("hash", 1, 1 << 20), ("hash", 4, 1 << 16))
 # phase 11's compact sharded counter: (shards, route_capacity)
 SHARDED_COMPACT = (4, 1 << 16)
+# phase 13's lookups: bench_configs.py --lookup's table and queries on one
+# shard (:576-596), and phase 3's table split over four shards of 2^22
+# slots with 2^20 queries, 2^17 lanes a sender and destination
+LOOKUP = dict(bench_keys=1 << 19, bench_capacity=1 << 20, queries=1 << 20,
+              shards=4, shard_capacity=1 << 22, query_capacity=1 << 17)
 
 
 def say(msg: str) -> None:
@@ -229,7 +249,6 @@ def phase_kernels(stats: dict, seed: int) -> None:
     import numpy as np
     import torch
 
-    from kmers_tpu_torch.core import u64
     from kmers_tpu_torch.io import fastx
     from kmers_tpu_torch.kernels import merge as kmerge
     from kmers_tpu_torch.kernels import window as kwin
@@ -276,28 +295,8 @@ def phase_kernels(stats: dict, seed: int) -> None:
         bound_ms=bound_ms(nbytes(reads, *kwin.pack_canonical_keys(reads, 31))),
         library_ms=None)
 
-    # K3: a 2^24-lane table (3/4 live) with 2^24 sorted unit keys, half of
-    # them drawn from the table's keys, a tenth flagged dead
     g = torch.Generator(device=dev).manual_seed(seed)
-    n = SIZES["merge"]
-    rand_keys = lambda m: torch.randint(0, 1 << 62, (m,), device=dev,
-                                        generator=g)
-    live_keys = torch.unique(rand_keys(3 * n // 4))
-    nl = live_keys.shape[0]
-    a_key = torch.cat([live_keys, torch.full((n - nl,), -1, device=dev,
-                                             dtype=torch.int64)])
-    a_hi, a_lo = u64.split_word(a_key)
-    a_w = torch.where(torch.arange(n, device=dev) < nl,
-                      torch.randint(1, 1000, (n,), device=dev, generator=g,
-                                    dtype=torch.int32), 0)
-    pick = torch.randint(0, nl, (n // 2,), device=dev, generator=g)
-    b_key = torch.cat([live_keys[pick], rand_keys(n - n // 2)])
-    dead = torch.rand(n, device=dev, generator=g) < 0.1
-    b_key = torch.where(dead, u64.SIGN_BIT, b_key)
-    b_key = u64.to_unsigned_order(torch.sort(u64.to_unsigned_order(b_key))
-                                  .values)
-    b_hi, b_lo = u64.split_word(b_key)
-    args3 = (a_hi, a_lo, a_w, b_hi, b_lo)
+    args3 = merge_inputs(g)
     res["merge_sorted"] = dict(
         max_abs_err=max_abs_err(kmerge.merge_sorted(*args3),
                                 kmerge.merge_sorted_plain(*args3)),
@@ -306,12 +305,7 @@ def phase_kernels(stats: dict, seed: int) -> None:
         bound_ms=bound_ms(nbytes(*args3, *kmerge.merge_sorted(*args3))),
         library_ms=None)
 
-    # K4 at 2^25 lanes, about half kept
-    n4 = SIZES["compress"]
-    planes = [u64.low32_as_int32(torch.randint(0, 1 << 32, (n4,), device=dev,
-                                               generator=g))
-              for _ in range(3)]
-    keep = (torch.rand(n4, device=dev, generator=g) < 0.5).to(torch.uint8)
+    planes, keep = compress_inputs(g)
     kept = int(keep.sum())
     got = kmerge.compress_flagged(*planes, keep)
     want = kmerge.compress_flagged_plain(*planes, keep)
@@ -335,6 +329,49 @@ def phase_kernels(stats: dict, seed: int) -> None:
     say(f"phase 2 kernels: all {len(res)} bit-exact vs plain; " + "; ".join(
         f"{name} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms)"
         for name, r in res.items()))
+
+
+def merge_inputs(g) -> tuple:
+    """K3's inputs: a 2^24-lane table (3/4 live) with 2^24 sorted unit
+    keys, half of them drawn from the table's keys, a tenth flagged
+    dead."""
+    import torch
+
+    from kmers_tpu_torch.core import u64
+
+    dev = torch.device(DEVICE)
+    n = SIZES["merge"]
+    rand_keys = lambda m: torch.randint(0, 1 << 62, (m,), device=dev,
+                                        generator=g)
+    live_keys = torch.unique(rand_keys(3 * n // 4))
+    nl = live_keys.shape[0]
+    a_key = torch.cat([live_keys, torch.full((n - nl,), -1, device=dev,
+                                             dtype=torch.int64)])
+    a_hi, a_lo = u64.split_word(a_key)
+    a_w = torch.where(torch.arange(n, device=dev) < nl,
+                      torch.randint(1, 1000, (n,), device=dev, generator=g,
+                                    dtype=torch.int32), 0)
+    pick = torch.randint(0, nl, (n // 2,), device=dev, generator=g)
+    b_key = torch.cat([live_keys[pick], rand_keys(n - n // 2)])
+    dead = torch.rand(n, device=dev, generator=g) < 0.1
+    b_key = torch.where(dead, u64.SIGN_BIT, b_key)
+    b_key = u64.to_unsigned_order(torch.sort(u64.to_unsigned_order(b_key))
+                                  .values)
+    return (a_hi, a_lo, a_w) + u64.split_word(b_key)
+
+
+def compress_inputs(g) -> tuple:
+    """K4's inputs: three random planes of 2^25 lanes, about half kept."""
+    import torch
+
+    from kmers_tpu_torch.core import u64
+
+    n4 = SIZES["compress"]
+    planes = [u64.low32_as_int32(torch.randint(0, 1 << 32, (n4,),
+                                               device=DEVICE, generator=g))
+              for _ in range(3)]
+    keep = (torch.rand(n4, device=DEVICE, generator=g) < 0.5).to(torch.uint8)
+    return planes, keep
 
 
 def kernels_hash(stats: dict, rs) -> None:
@@ -792,13 +829,8 @@ def _shard_sort_keys(fastq: str) -> tuple:
         route_capacity=route_capacity, packed=True)
     wv = next(iter(fastx.read_packed_batches(fastq, k=31, batch=4096,
                                              length=256)))
-    caught, sort = [], ksort.radix_sort_u64
-    ksort.radix_sort_u64 = lambda hi, lo: caught.append((hi, lo)) or sort(
-        hi, lo)
-    try:
+    with caught_args(ksort, "radix_sort_u64") as caught:
         step(*(torch.from_numpy(a.view(np.int32)).to(DEVICE) for a in wv))
-    finally:
-        ksort.radix_sort_u64 = sort
     return caught[0]
 
 
@@ -961,19 +993,26 @@ def _device_ops(fn) -> dict:
 
 
 def phase_profiled(stats: dict) -> None:
-    """Phase 12, last: the device time of one call of the smallest kernels
-    (K1, K10 at seg 64), as torch.profiler records it over PROFILED_CALLS
-    calls: the kernel alone, without the few us that two CUDA events add
+    """Phase 12, last: the device time of one call of K1, K10 at seg 64,
+    K4 at 2^25 lanes, K3 with idx at 2^24 + 2^24 and phase 13's (c)
+    lookup at each arm, as torch.profiler records it over PROFILED_CALLS
+    calls: the call's device operations alone (the six longest by name
+    where there are several), without the few us that two CUDA events add
     to every time_ms sample."""
-    def per_call_ms(fn) -> float:
+    def per_call(fn) -> str:
         ops = _device_ops(lambda: [fn() for _ in range(PROFILED_CALLS)])
         if not ops:
             raise AssertionError("torch.profiler saw no device operation")
-        return sum(us for _, us in ops.values()) / PROFILED_CALLS / 1e3
+        ms = sorted(((us / PROFILED_CALLS / 1e3, name, n / PROFILED_CALLS)
+                     for name, (n, us) in ops.items()), reverse=True)
+        parts = (" (" + ", ".join(f"{name} {n:g}x {t:.5f}"
+                                  for t, name, n in ms[:6])
+                 + (f", {len(ms) - 6} more" if len(ms) > 6 else "")
+                 + ")") if len(ms) > 1 else ""
+        return f"{sum(t for t, _, _ in ms):.5f} ms{parts}"
 
     say("phase 12 profiler device time a call: " + "; ".join(
-        f"{label} {per_call_ms(fn):.5f} ms"
-        for label, fn in stats["profiled"].items()))
+        f"{label} {per_call(fn)}" for label, fn in stats["profiled"].items()))
 
 
 def _fold_batches(batches, count, merge, empty, capacity: int, k: int,
@@ -1154,6 +1193,241 @@ def phase_sharded_compact(stats: dict, workdir: str) -> None:
         f"{ {m: c for m, c in m_launches.items() if c} }")
 
 
+@contextlib.contextmanager
+def caught_args(module, name: str):
+    """Record the positional arguments of the first call of module.name
+    made inside the block (the call itself goes through)."""
+    caught, fn = [], getattr(module, name)
+
+    def catch(*args, **kw):
+        if not caught:
+            caught.append(args)
+        return fn(*args, **kw)
+
+    setattr(module, name, catch)
+    try:
+        yield caught
+    finally:
+        setattr(module, name, fn)
+
+
+def _bench_lookup_inputs():
+    """bench_configs.py --lookup's inputs (:576-596), numpy's
+    default_rng(11): 2^19 distinct keys below 2^62, ascending, at capacity
+    2^20 (zeros past them), counts 1..99, and 2^20 queries of hi below
+    2^30, all valid."""
+    import numpy as np
+    import torch
+
+    from kmers_tpu_torch.core import u64
+    from kmers_tpu_torch.parallel import count as count_ops
+
+    rng = np.random.default_rng(11)
+    cap, n_keys = LOOKUP["bench_capacity"], LOOKUP["bench_keys"]
+    keys = np.zeros(cap, np.uint64)
+    keys[:n_keys] = np.sort(rng.choice(2**62, size=n_keys, replace=False))
+    counts = np.where(np.arange(cap) < n_keys, rng.integers(1, 100, cap), 0)
+    nq = LOOKUP["queries"]
+    q_hi = rng.integers(0, 2**30, nq, dtype=np.uint32).astype(np.uint64)
+    q_lo = rng.integers(0, 2**32, nq, dtype=np.uint32).astype(np.uint64)
+    dev = torch.device(DEVICE)
+    table = count_ops.CountTable(
+        *u64.split_word(torch.from_numpy(keys.view(np.int64)).to(dev)),
+        torch.from_numpy(counts.astype(np.int32)).to(dev), n_keys)
+    queries = (q_hi << np.uint64(32)) | q_lo
+    return table, torch.from_numpy(queries.view(np.int64)).to(dev)
+
+
+def _split_by_owner(table, shards: int, capacity: int) -> list:
+    """A table's keys as the hash partition's shard tables: split by
+    route.owner_of, each shard's keys still ascending, zeros past them."""
+    import torch
+
+    from kmers_tpu_torch.core import u64
+    from kmers_tpu_torch.parallel import count as count_ops
+    from kmers_tpu_torch.parallel import route
+
+    nu = table.n_unique
+    keys = u64.join_planes(table.keys_hi[:nu], table.keys_lo[:nu])
+    counts = table.counts[:nu]
+    owner = route.owner_of(keys, shards)
+    out = []
+    for s in range(shards):
+        k, c = keys[owner == s], counts[owner == s]
+        pad = capacity - k.shape[0]
+        out.append(count_ops.CountTable(
+            *u64.split_word(torch.cat([k, k.new_zeros(pad)])),
+            torch.cat([c, c.new_zeros(pad)]), k.shape[0]))
+    return out
+
+
+def _lookup_queries(keys, g, n: int, seed: int):
+    """n shuffled queries: half drawn from `keys`, a quarter random
+    canonical k=31 words, a quarter invalid; then lanes 0-4 invalid and
+    lane 5 feistel_unmix(MAX, seed), the real query whose mix is the
+    invalid lanes' sentinel."""
+    import torch
+
+    from kmers_tpu_torch.core import u64
+
+    dev = keys.device
+    half, quarter = n // 2, n // 4
+    rand = lambda m: torch.randint(0, 1 << 62, (m,), device=dev, generator=g)
+    w = rand(quarter)
+    words = torch.cat([
+        keys[torch.randint(0, keys.shape[0], (half,), device=dev,
+                           generator=g)],
+        u64.unsigned_min(w, u64.reverse_complement(w, 31)),
+        rand(n - half - quarter)])
+    valid = torch.arange(n, device=dev) < half + quarter
+    perm = torch.randperm(n, device=dev, generator=g)
+    words, valid = words[perm], valid[perm]
+    valid[:5] = False
+    words[5] = u64.feistel_unmix(torch.full((1,), -1, device=dev), seed)[0]
+    valid[5] = True
+    return words, valid
+
+
+def phase_lookup(stats: dict, seed: int, workdir: str) -> None:
+    """Phase 13: the distributed lookup service, both answer arms
+    (make_sharded_lookup, merge_lookup True and False), on (b)
+    bench_configs.py --lookup's table and queries on one shard, and on (c)
+    phase 3's table split over four shards on the one card with 2^20
+    queries; answers equal count.lookup / StreamingCounter.lookup (-1 on
+    invalid lanes), no overflow, and lookup_sharded agrees on the valid
+    lanes.  The merge arm's main runs must launch K3 with its index plane
+    and K4.  Then (a) K3 with idx bit for bit against its plain version at
+    phase 2's 2^24 + 2^24 lanes and at (c)'s shard shape, timed."""
+    import torch
+
+    from kmers_tpu_torch import kernels
+    from kmers_tpu_torch.kernels import merge as kmerge
+    from kmers_tpu_torch.parallel import count as count_ops
+    from kmers_tpu_torch.parallel import pipeline
+    from kmers_tpu_torch.parallel.mesh import make_mesh
+    from kmers_tpu_torch.parallel.stream import StreamingCounter
+
+    launched = dict.fromkeys(("merge_sorted_idx", "compress_flagged"), 0)
+    results = {}
+
+    def drive(label, mesh, tables, queries, valid, want, query_capacity):
+        """Both arms: a first call (wall, launches, checks), then the
+        median of 10 calls between CUDA events."""
+        res = results[label] = {}
+        for arm, merge in (("merge", True), ("binsearch", False)):
+            fn = pipeline.make_sharded_lookup(
+                mesh, query_capacity=query_capacity, max_k=31,
+                merge_lookup=merge)
+            sync()
+            kernels.reset_launch_counts()
+            t0 = time.time()
+            counts, overflow = fn(tables, queries, valid)
+            sync()
+            wall = time.time() - t0
+            launches = kernels.launch_counts()
+            if int(overflow) or not torch.equal(counts, want):
+                raise AssertionError(
+                    f"lookup {label} {arm}: overflow {int(overflow)}, "
+                    f"{int((counts != want).sum())} answers differ")
+            if merge:
+                for name in launched:
+                    if launches[name] == 0:
+                        raise AssertionError(f"lookup {label}: {name} was "
+                                             "not launched")
+                    launched[name] += launches[name]
+            ms = time_ms(lambda: fn(tables, queries, valid))
+            res[arm] = dict(wall_s=wall, ms=ms,
+                            queries_per_s=queries.shape[0] / ms * 1e3)
+            stats["profiled"][f"lookup {label} {arm}"] = (
+                lambda fn=fn: fn(tables, queries, valid))
+
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    table, queries = _bench_lookup_inputs()
+    valid = torch.ones_like(queries, dtype=torch.bool)
+    drive("bench_d1", make_mesh(devices=[DEVICE]), [table], queries, valid,
+          count_ops.lookup(table, queries), LOOKUP["queries"])
+
+    sc = StreamingCounter.load(os.path.join(workdir, "ecoli_1m_k31.npz"),
+                               device=DEVICE)
+    nu = sc.table.n_unique
+    shards = LOOKUP["shards"]
+    tables = _split_by_owner(sc.table, shards, LOOKUP["shard_capacity"])
+    if sum(t.n_unique for t in tables) != nu:
+        raise AssertionError("the shard split lost keys")
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    queries, valid = _lookup_queries(table_keys(sc.table), g,
+                                     LOOKUP["queries"], 0)
+    want = torch.where(valid, sc.lookup(queries), -1)
+    mesh4 = make_mesh(devices=[DEVICE] * shards)
+    with caught_args(kmerge, "merge_sorted") as caught:
+        pipeline.make_sharded_lookup(
+            mesh4, query_capacity=LOOKUP["query_capacity"], max_k=31,
+            merge_lookup=True)(tables, queries, valid)
+    drive("ecoli_d4", mesh4, tables, queries, valid, want,
+          LOOKUP["query_capacity"])
+    by_owner = pipeline.lookup_sharded(tables, queries, shards)
+    if not torch.equal(by_owner[valid], want[valid]):
+        raise AssertionError("lookup_sharded differs on the valid lanes")
+    sync()
+    peak = torch.cuda.max_memory_allocated()
+
+    # (a) K3 with idx at phase 2's inputs (the same generator stream) and at
+    # (c)'s shard shape; K4's phase-2 inputs for phase 12's profiler
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    args3 = merge_inputs(g)
+    planes, keep = compress_inputs(g)
+    at_shard = caught[0]
+    err = max(max_abs_err(kmerge.merge_sorted(*a, with_idx=True),
+                          kmerge.merge_sorted_plain(*a, with_idx=True))
+              for a in (args3, at_shard))
+    if err:
+        raise AssertionError(f"merge_sorted_idx differs from its plain "
+                             f"version (max_abs_err {err})")
+    sizes = {}
+    shard_label = f"{at_shard[0].shape[0]} + {at_shard[3].shape[0]}"
+    for label, a in (("2^24 + 2^24", args3), (shard_label, at_shard)):
+        sizes[label] = (
+            time_ms(lambda: kmerge.merge_sorted(*a, with_idx=True)),
+            time_ms(lambda: kmerge.merge_sorted_plain(*a, with_idx=True)),
+            bound_ms(nbytes(*a, *kmerge.merge_sorted(*a, with_idx=True))))
+    # lookup_merge's run broadcast at (c)'s merged lanes: the cumsum of
+    # the run starts it takes, and the torch.cummax scan it does not take
+    starts = torch.rand(sum(map(len, at_shard[::3])), device=DEVICE,
+                        generator=g) < 0.5
+    pos = torch.arange(starts.shape[0], device=DEVICE)
+    broadcast = dict(
+        cumsum=time_ms(lambda: torch.cumsum(starts, 0)),
+        cummax=time_ms(lambda: torch.cummax(torch.where(starts, pos, 0), 0)))
+    ms, plain_ms, bound = sizes["2^24 + 2^24"]
+    stats["kernels"]["merge_sorted_idx"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        library_ms=None, sizes=sizes)
+    stats["launches"]["merge_sorted_idx"] = launched["merge_sorted_idx"]
+    stats["profiled"]["merge_sorted_idx [2^24 + 2^24]"] = (
+        lambda: kmerge.merge_sorted(*args3, with_idx=True))
+    stats["profiled"]["compress_flagged [2^25]"] = (
+        lambda: kmerge.compress_flagged(*planes, keep))
+
+    faster = {min(r, key=lambda arm: r[arm]["ms"]) for r in results.values()}
+    faster = faster.pop() if len(faster) == 1 else "neither"
+    stats["lookup"] = dict(results, peak_bytes=peak, launches=launched,
+                           faster=faster, broadcast_ms=broadcast)
+    say("phase 13 lookup service: " + "; ".join(
+        f"{label} " + ", ".join(
+            f"{arm} {r['ms']:.4f} ms = {r['queries_per_s']:.4g} queries/s "
+            f"(first call {r['wall_s']:.3f}s)" for arm, r in res.items())
+        for label, res in results.items())
+        + f"; faster at both shapes: {faster}; answers == "
+        f"count.lookup / StreamingCounter.lookup, overflow 0, lookup_sharded "
+        f"== on the valid lanes; peak device memory {peak / 2**20:.1f} MiB; "
+        f"merge arm launches {launched}; merge_sorted_idx bit-exact vs plain, "
+        + ", ".join(f"[{label}] {t[0]:.4f} ms (plain {t[1]:.3f}, bound "
+                    f"{t[2]:.4f})" for label, t in sizes.items())
+        + f"; run broadcast at {starts.shape[0]} lanes: cumsum "
+        f"{broadcast['cumsum']:.4f} ms, torch.cummax {broadcast['cummax']:.4f}")
+
+
 def _top_and_absent_queries(path: str) -> list:
     """The most frequent k-mer of a saved table as a string, and AAA..A."""
     import numpy as np
@@ -1202,6 +1476,7 @@ def main(argv=None) -> int:
         phase_end_to_end(stats, args.seed, args.workdir, k, 10)
     phase_reference(stats, args.workdir, ks=(32, 64), phase=10)
     phase_sharded_compact(stats, args.workdir)
+    phase_lookup(stats, args.seed, args.workdir)
     phase_sort_call(sort_inputs)
     phase_profiled(stats)
 

@@ -9,8 +9,9 @@ torch and numpy only, never JAX.
 Ported so far: the single-device ``count`` path for 1 <= k <= 64
 (128-bit keys past k = 32), with the streaming unit tables and the
 sort-based compact and run-length tables; the hash emitters; minimizers;
-and sharded counting at k <= 31 over a one-process mesh (hash or
-minimizer partition, and minimizer bucketing).
+sharded counting at k <= 31 over a one-process mesh (hash or minimizer
+partition, and minimizer bucketing); and the distributed lookup service
+at k <= 31 (parallel.pipeline.make_sharded_lookup, lookup_sharded).
 """
 
 from .parallel import stream  # noqa: F401  (kmers_tpu_torch.stream.npz_digest)

@@ -13,7 +13,8 @@ from __future__ import annotations
 import torch
 
 KERNELS = ("pack_canonical_keys_packed", "pack_canonical_keys",
-           "merge_sorted", "compress_flagged", "pack_canonical_hash",
+           "merge_sorted", "merge_sorted_idx", "compress_flagged",
+           "pack_canonical_hash",
            "merge_sorted_wide", "pack_canonical_keys_wide",
            "pack_canonical_hash_wide", "minimizer_kernel",
            "segment_count_keys", "segment_count_keys_wide", "radix_sort_u64")

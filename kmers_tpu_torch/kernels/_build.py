@@ -50,6 +50,7 @@ _SIGNATURES = {
     "kt_minimizer": ([_P] * 5 + [_I] * 4 + [_ULL, _I, _P], _I),
     "kt_merge_sorted": ([_P, _P, _P, _LL, _P, _P, _LL, _P, _P, _P, _P, _P],
                         _I),
+    "kt_merge_sorted_idx": ([_P, _P, _P, _LL, _P, _P, _LL] + [_P] * 6, _I),
     "kt_merge_sorted_wide": ([_P] * 5 + [_LL] + [_P] * 4 + [_LL]
                              + [_P] * 7, _I),
     "kt_compress_block_counts": ([_P, _LL, _P, _P], _I),

@@ -3,14 +3,15 @@
 //
 // Replaces three Pallas functions of kmers_tpu/kernels/merge.py:
 //   K3 merge_sorted       (_merge_sorted_impl at nk=2, _merge_kernel_n,
-//                          _merge_path_search_n, _bitonic_merge_n)
+//                          _merge_path_search_n, _bitonic_merge_n), with
+//                          and without with_idx's source-index plane
 //   K6 merge_sorted_wide  (the same at nk=4: 128-bit keys)
 //   K4 compress_flagged   (_compress_kernel)
 //
 // All are bound by device-memory bytes: K3 moves 20 B in and 12 B out
-// per output lane (K6 36 B and 20 B) and K4 some 13 B in and up to 12 B
-// out, against a handful of compares each.  The design moves each byte
-// once, in coalesced lines:
+// per output lane (16 B out with the index plane; K6 36 B and 20 B) and
+// K4 some 13 B in and up to 12 B out, against a handful of compares
+// each.  The design moves each byte once, in coalesced lines:
 //
 // K3/K6 merge path (Green et al.), one template on the key plane count
 // NK.  A small kernel splits the output into tile-lane ranges by binary
@@ -109,11 +110,15 @@ __global__ void kt_merge_partition_kernel(InPlanes<NK> a, long long na,
 }
 
 // a: NK key planes + the weight; b: NK key planes; o: NK planes + weight.
-template <int NK>
+// WITH_IDX also writes o_idx, the source-index plane of merge.py:402-405:
+// an A lane's rank in A, or 0x80000000 | a B lane's rank in B.  It is
+// staged in sb[0], free after the second barrier, so shared memory stays
+// at 2 NK + 1 planes (a fourth plane in sa would reach the 48 KB limit).
+template <int NK, bool WITH_IDX>
 __global__ void __launch_bounds__(MERGE_THREADS)
 kt_merge_kernel(InPlanes<NK + 1> a, long long na, InPlanes<NK> b,
                 long long nb, const long long* __restrict__ part,
-                OutPlanes<NK + 1> o) {
+                OutPlanes<NK + 1> o, u32* __restrict__ o_idx) {
   constexpr int ITEMS = MergeItems<NK>::value;
   constexpr int TILE = kt_tile<NK>();
   __shared__ u32 sa[NK + 1][TILE];
@@ -143,6 +148,7 @@ kt_merge_kernel(InPlanes<NK + 1> a, long long na, InPlanes<NK> b,
                               wb, di);
   int bi = di - ai;
   u32 r[NK + 1][ITEMS];
+  u32 r_idx[ITEMS];
 #pragma unroll
   for (int it = 0; it < ITEMS; ++it) {
     if (di + it >= total) break;
@@ -151,11 +157,13 @@ kt_merge_kernel(InPlanes<NK + 1> a, long long na, InPlanes<NK> b,
     if (take_a) {
 #pragma unroll
       for (int j = 0; j <= NK; ++j) r[j][it] = sa[j][ai];
+      if (WITH_IDX) r_idx[it] = (u32)(a0 + ai);
       ++ai;
     } else {
 #pragma unroll
       for (int j = 0; j < NK; ++j) r[j][it] = sb[j][bi];
       r[NK][it] = (sb[0][bi] >> 31) ^ 1u;
+      if (WITH_IDX) r_idx[it] = 0x80000000u | (u32)(b0 + bi);
       ++bi;
     }
   }
@@ -165,19 +173,22 @@ kt_merge_kernel(InPlanes<NK + 1> a, long long na, InPlanes<NK> b,
     if (di + it >= total) break;
 #pragma unroll
     for (int j = 0; j <= NK; ++j) sa[j][di + it] = r[j][it];
+    if (WITH_IDX) sb[0][di + it] = r_idx[it];
   }
   __syncthreads();
   for (int i = threadIdx.x; i < total; i += MERGE_THREADS) {
 #pragma unroll
     for (int j = 0; j <= NK; ++j) o.p[j][d0 + i] = sa[j][i];
+    if (WITH_IDX) o_idx[d0 + i] = sb[0][i];
   }
 }
 
-// part: scratch of ceil((nA + nB) / tile) + 1 int64 lanes.
-template <int NK>
+// part: scratch of ceil((nA + nB) / tile) + 1 int64 lanes; o_idx: the
+// source-index plane when WITH_IDX, else unused.
+template <int NK, bool WITH_IDX>
 static int kt_merge_launch(InPlanes<NK + 1> a, long long na, InPlanes<NK> b,
                            long long nb, long long* part, OutPlanes<NK + 1> o,
-                           cudaStream_t st) {
+                           u32* o_idx, cudaStream_t st) {
   const long long n = na + nb;
   if (n == 0) return 0;
   const long long tiles = (n + kt_tile<NK>() - 1) / kt_tile<NK>();
@@ -188,8 +199,8 @@ static int kt_merge_launch(InPlanes<NK + 1> a, long long na, InPlanes<NK> b,
                                   st>>>(ak, na, b, nb, part, n_parts);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  kt_merge_kernel<NK><<<(unsigned)tiles, MERGE_THREADS, 0, st>>>(
-      a, na, b, nb, part, o);
+  kt_merge_kernel<NK, WITH_IDX><<<(unsigned)tiles, MERGE_THREADS, 0, st>>>(
+      a, na, b, nb, part, o, o_idx);
   return (int)cudaGetLastError();
 }
 
@@ -252,8 +263,23 @@ KT_EXPORT int kt_merge_sorted(const void* a_hi, const void* a_lo,
   InPlanes<3> a = {{(const u32*)a_hi, (const u32*)a_lo, (const u32*)a_w}};
   InPlanes<2> b = {{(const u32*)b_hi, (const u32*)b_lo}};
   OutPlanes<3> o = {{(u32*)o_hi, (u32*)o_lo, (u32*)o_w}};
-  return kt_merge_launch<2>(a, na, b, nb, (long long*)part, o,
-                            (cudaStream_t)stream);
+  return kt_merge_launch<2, false>(a, na, b, nb, (long long*)part, o, nullptr,
+                                   (cudaStream_t)stream);
+}
+
+// K3 with_idx (merge.py:138-140): kt_merge_sorted plus the source-index
+// plane o_idx; nA and nB below 2^31.
+KT_EXPORT int kt_merge_sorted_idx(const void* a_hi, const void* a_lo,
+                                  const void* a_w, long long na,
+                                  const void* b_hi, const void* b_lo,
+                                  long long nb, void* part, void* o_hi,
+                                  void* o_lo, void* o_w, void* o_idx,
+                                  void* stream) {
+  InPlanes<3> a = {{(const u32*)a_hi, (const u32*)a_lo, (const u32*)a_w}};
+  InPlanes<2> b = {{(const u32*)b_hi, (const u32*)b_lo}};
+  OutPlanes<3> o = {{(u32*)o_hi, (u32*)o_lo, (u32*)o_w}};
+  return kt_merge_launch<2, true>(a, na, b, nb, (long long*)part, o,
+                                  (u32*)o_idx, (cudaStream_t)stream);
 }
 
 // K6: key planes most significant first; part: ceil((nA + nB) /
@@ -271,8 +297,8 @@ KT_EXPORT int kt_merge_sorted_wide(const void* a3, const void* a2,
   InPlanes<4> b = {{(const u32*)b3, (const u32*)b2, (const u32*)b1,
                     (const u32*)b0}};
   OutPlanes<5> o = {{(u32*)o3, (u32*)o2, (u32*)o1, (u32*)o0, (u32*)o_w}};
-  return kt_merge_launch<4>(a, na, b, nb, (long long*)part, o,
-                            (cudaStream_t)stream);
+  return kt_merge_launch<4, false>(a, na, b, nb, (long long*)part, o, nullptr,
+                                   (cudaStream_t)stream);
 }
 
 // counts: ceil(n / COMPRESS_THREADS) int64 lanes.

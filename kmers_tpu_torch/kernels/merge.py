@@ -1,10 +1,11 @@
 """Consolidation kernels K3, K6 and K4.
 
 Counterparts of ``kmers_tpu/kernels/merge.py``'s ``merge_sorted`` (K3,
-two key planes, without ``with_idx``), ``merge_sorted_wide`` (K6, four
-key planes: 128-bit keys) and ``compress_flagged`` (K4).  All planes are
-1-D int32 tensors holding uint32 bit patterns.  CUDA source:
-``csrc/merge.cu`` (K3 and K6 are one kernel template).
+two key planes, and ``with_idx``'s source-index plane),
+``merge_sorted_wide`` (K6, four key planes: 128-bit keys) and
+``compress_flagged`` (K4).  All planes are 1-D int32 tensors holding
+uint32 bit patterns.  CUDA source: ``csrc/merge.cu`` (K3 and K6 are one
+kernel template, the index plane a compile-time flag of it).
 """
 
 from __future__ import annotations
@@ -20,43 +21,59 @@ def _check_planes(n: int, **planes) -> None:
         check_tensor(t, name, torch.int32, (n,))
 
 
-def merge_sorted_plain(a_hi, a_lo, a_w, b_hi, b_lo):
+def merge_sorted_plain(a_hi, a_lo, a_w, b_hi, b_lo, with_idx: bool = False):
     """Plain version of K3: one stable sort of A then B by the unsigned
-    key, so equal keys keep A before B and their order within each side."""
+    key, so equal keys keep A before B and their order within each side.
+    with_idx: the sort's order is the source index, a B lane's rank in B
+    carrying bit 31."""
     key = u64.to_unsigned_order(u64.join_planes(torch.cat([a_hi, b_hi]),
                                                 torch.cat([a_lo, b_lo])))
     b_w = ((b_hi >> 31) & 1) ^ 1
     order = torch.sort(key, stable=True).indices
-    return (torch.cat([a_hi, b_hi])[order], torch.cat([a_lo, b_lo])[order],
-            torch.cat([a_w, b_w])[order])
+    out = (torch.cat([a_hi, b_hi])[order], torch.cat([a_lo, b_lo])[order],
+           torch.cat([a_w, b_w])[order])
+    if not with_idx:
+        return out
+    na = a_hi.shape[0]
+    idx = torch.where(order < na, order, (order - na) - (1 << 31))
+    return out + (idx.to(torch.int32),)
 
 
-def merge_sorted(a_hi, a_lo, a_w, b_hi, b_lo):
+def merge_sorted(a_hi, a_lo, a_w, b_hi, b_lo, with_idx: bool = False):
     """K3: merge a sorted table A (key_hi, key_lo, weight) with sorted
     unit keys B (key_hi, key_lo in the folded layout: bit 31 of hi set =
     dead lane, weight = flag ^ 1) into one (hi, lo, w) of nA + nB lanes.
 
     Both sides must ascend by unsigned (hi, lo), dead lanes last; equal
-    keys keep A before B."""
+    keys keep A before B.  with_idx=True adds a fourth int32 plane, the
+    source index (kmers_tpu/kernels/merge.py:138-140): an A lane's rank
+    in A, or 0x80000000 | a B lane's rank in B (negative as int32); its
+    launches count as "merge_sorted_idx"."""
     na, nb = a_hi.shape[0], b_hi.shape[0]
     _check_planes(na, a_hi=a_hi, a_lo=a_lo, a_w=a_w)
     _check_planes(nb, b_hi=b_hi, b_lo=b_lo)
     if not on_cuda(a_hi, a_lo, a_w, b_hi, b_lo):
-        return merge_sorted_plain(a_hi, a_lo, a_w, b_hi, b_lo)
+        return merge_sorted_plain(a_hi, a_lo, a_w, b_hi, b_lo, with_idx)
     n = na + nb
+    if with_idx and max(na, nb) >= 1 << 31:
+        raise ValueError("merge_sorted(with_idx=True) takes sides below 2^31 "
+                         "lanes")
     device = a_hi.device
-    out = [torch.empty(n, dtype=torch.int32, device=device) for _ in range(3)]
+    out = [torch.empty(n, dtype=torch.int32, device=device)
+           for _ in range(4 if with_idx else 3)]
+    name = "merge_sorted_idx" if with_idx else "merge_sorted"
     with torch.cuda.device(device):
         lib = _build.lib()
         tile = lib.kt_merge_tile()
         part = torch.empty(-(-n // tile) + 1, dtype=torch.int64, device=device)
-        code = lib.kt_merge_sorted(
+        launch = lib.kt_merge_sorted_idx if with_idx else lib.kt_merge_sorted
+        code = launch(
             a_hi.data_ptr(), a_lo.data_ptr(), a_w.data_ptr(), na,
             b_hi.data_ptr(), b_lo.data_ptr(), nb, part.data_ptr(),
             *(o.data_ptr() for o in out),
             torch.cuda.current_stream().cuda_stream)
-    _build.check(code, "merge_sorted")
-    count_launch("merge_sorted")
+    _build.check(code, name)
+    count_launch(name)
     return tuple(out)
 
 

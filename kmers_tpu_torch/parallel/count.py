@@ -259,6 +259,57 @@ def lookup(table: CountTable, queries: torch.Tensor) -> torch.Tensor:
     return torch.where(hit, table.counts[at_c], 0)
 
 
+_INVALID_QUERY = -2          # (0xFFFFFFFF, 0xFFFFFFFE) as an int64 word
+
+
+def lookup_merge(table: CountTable, queries: torch.Tensor,
+                 valid=None) -> torch.Tensor:
+    """Count of each int64 query word (int32, in the queries' shape; 0 if
+    absent or invalid) by sort and merge instead of a binary search
+    (kmers_tpu/parallel/count.py:491-571), for k <= 31 keys.
+
+    The queries are sorted stably with their positions and merged into
+    the table by K3 with its source-index plane; the table's (unique)
+    lane of a key is its run's start (A before B on equal keys), so each
+    run start's table count is broadcast forward over its run; K4
+    compacts the query lanes, which come out in sorted-query order, and a
+    scatter by position un-sorts them.  Invalid queries are keyed
+    (MAX, MAX-1): after every real key, before the table's dead (MAX, MAX)
+    slots.  The broadcast is a cumsum, a scatter and a gather (JAX's
+    log-doubling; torch.cummax would do, but on the card it scans a 1-D
+    tensor in one block) and the un-sort a scatter (JAX's sort by
+    position): positions are unique, so the answers are the same."""
+    q = queries.reshape(-1)
+    nq = q.shape[0]
+    device = q.device
+    if nq == 0:
+        return torch.zeros(queries.shape, dtype=torch.int32, device=device)
+    if valid is not None:
+        q = torch.where(valid.reshape(-1), q, _INVALID_QUERY)
+    s_q, s_pos = torch.sort(u64.to_unsigned_order(q), stable=True)
+    s_hi, s_lo = u64.split_word(u64.to_unsigned_order(s_q))
+    live = torch.arange(table.capacity, device=device) < table.n_unique
+    m_hi, m_lo, m_w, m_idx = kmerge.merge_sorted(
+        torch.where(live, table.keys_hi, -1),
+        torch.where(live, table.keys_lo, -1),
+        torch.where(live, table.counts, 0), s_hi, s_lo, with_idx=True)
+    is_q = m_idx < 0                      # bit 31: a query lane
+    n = m_hi.shape[0]
+    starts = torch.arange(n, device=device) == 0
+    starts[1:] = (m_hi[1:] != m_hi[:-1]) | (m_lo[1:] != m_lo[:-1])
+    # each lane's run is a cumsum of the starts; a run's value, scattered
+    # at its start (slot n takes the other lanes' zeros), is gathered by
+    # every lane of it
+    run = torch.cumsum(starts, 0) - 1
+    run_val = torch.zeros(n + 1, dtype=torch.int32, device=device)
+    run_val[torch.where(starts, run, n)] = torch.where(starts & ~is_q, m_w, 0)
+    _, _, c_val = kmerge.compress_flagged(
+        m_idx & 0x7FFFFFFF, m_lo, run_val[run], is_q.to(torch.uint8))
+    answers = torch.empty(nq, dtype=torch.int32, device=device)
+    answers[s_pos] = c_val[:nq]
+    return answers.reshape(queries.shape)
+
+
 def lookup_wide(table: CountTableWide, q_hi: torch.Tensor,
                 q_lo: torch.Tensor) -> torch.Tensor:
     """Count of each 128-bit query word (q_hi, q_lo int64; 0 if absent),

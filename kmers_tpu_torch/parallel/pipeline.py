@@ -22,6 +22,11 @@ A batch becomes one table, in the form `aggregate` names (default from
                   packed bases (route_payload), selected by kernel K9;
                   make_sharded_minimizer_counter: each k-mer's minimizer
                   routed to its owner and counted (BASELINE config 4).
+  lookup service  make_sharded_lookup: queries routed to the shards that
+                  own them (route.route_queries), answered there by binary
+                  search or by merge (count.lookup_merge: K3 with its
+                  source-index plane, K4), and carried home;
+                  lookup_sharded looks each query up in its owner's table.
 
 A sharded step returns one table per shard (on its device) and its
 metrics summed over the shards on the mesh's first device.
@@ -529,3 +534,63 @@ def make_sharded_minimizer_counter(mesh, k: int, w: int, *,
                             for r in routed], metrics)
 
     return fn
+
+
+# -- distributed lookup service (kmers_tpu/parallel/pipeline.py:911-970) -------
+
+def make_sharded_lookup(mesh, *, query_capacity: int, seed: int = 0,
+                        max_k: Optional[int] = None,
+                        merge_lookup: Optional[bool] = None):
+    """A query step over per-shard count tables: fn(tables, queries,
+    valid) -> (counts int32 [Q] on mesh[0], overflow), counts aligned
+    with the queries, -1 where a query was invalid or overflowed its
+    sender's query_capacity lanes to its owner.
+
+    tables: one compact CountTable per shard, on its device, holding the
+    keys that shard owns by hash (make_sharded_counter's tables);
+    queries int64 [Q] and valid bool [Q] split over the mesh
+    (mesh.batch_sharding).  route_queries takes each query to its owner,
+    which answers by count.lookup_merge (merge_lookup=True) or
+    count.lookup's binary search (False, and None: on the CPU as the JAX
+    package off a TPU, and on the card because chip_smoke.py's phase 13
+    measured it faster at both of its shapes; PERF.md section 6),
+    and the answers ride home.  merge_lookup=True with max_k > 31 raises,
+    where the JAX package answers wrongly: the merge keys on bit 63."""
+    use_merge = bool(merge_lookup)
+    if use_merge and max_k is not None and max_k > NARROW_MAX_K:
+        raise ValueError(f"merge_lookup takes k <= {NARROW_MAX_K} keys, "
+                         f"max_k={max_k}")
+
+    def fn(tables, queries: torch.Tensor, valid: torch.Tensor):
+        routed, reply = route_ops.route_queries(
+            mesh_ops.batch_sharding(queries, mesh),
+            mesh_ops.batch_sharding(valid, mesh), mesh, query_capacity, seed)
+        answers = []
+        for table, r in zip(tables, routed):
+            if use_merge:
+                got = count_ops.lookup_merge(table, r.words, r.valid)
+            else:
+                got = count_ops.lookup(table, r.words)
+            answers.append(torch.where(r.valid, got, -1))
+        dev = mesh[0]
+        counts = torch.cat([c.to(dev) for c in reply(answers)])
+        return counts, _psum([r.overflow for r in routed], dev)
+
+    return fn
+
+
+def lookup_sharded(tables, queries: torch.Tensor, n_shards: int,
+                   seed: int = 0) -> torch.Tensor:
+    """Count of each int64 query word (int32, 0 if absent) from its owner's
+    table (route.owner_of) among per-shard tables, on the queries' device
+    (kmers_tpu/parallel/pipeline.py:316-336).  Over the minimizer
+    partition's shard tables, which are not key-disjoint, a count is only
+    the owner's part, as in the JAX package: look up global_table there."""
+    if len(tables) != n_shards:
+        raise ValueError(f"{len(tables)} tables for {n_shards} shards")
+    owner = route_ops.owner_of(queries, n_shards, seed)
+    out = torch.zeros(queries.shape, dtype=torch.int32, device=queries.device)
+    for s, table in enumerate(tables):
+        got = count_ops.lookup(table, queries.to(table.counts.device))
+        out = torch.where(owner == s, got.to(queries.device), out)
+    return out

@@ -16,7 +16,9 @@ all_to_all, as in the JAX package:
      shard r.
 
 Lanes past passes * C of a bucket are dropped and counted (``overflow``);
-lanes shipped in passes >= 2 are counted too (``rerouted``).  Every
+lanes shipped in passes >= 2 are counted too (``rerouted``).
+``route_queries`` is the lookup service's round trip: one pass out, and
+the answers carried back to the senders' lanes.  Every
 function takes one tensor per shard (a list in mesh order) and returns
 one result per shard: the senders' phase runs for every shard, then the
 exchange, then the receivers' phase.
@@ -92,6 +94,15 @@ def bucket_sort(words: torch.Tensor, valid: torch.Tensor, n_shards: int,
     s = u64.to_unsigned_order(torch.sort(u64.to_unsigned_order(f)).values)
     n_valid = valid.sum()
     sv = torch.arange(s.shape[-1], device=s.device) < n_valid
+    return (s, sv, _mul_shift32(u64.shr(s, 32), n_shards),
+            _owner_counts(s, n_valid, n_shards))
+
+
+def _owner_counts(s: torch.Tensor, n_valid: torch.Tensor,
+                  n_shards: int) -> torch.Tensor:
+    """Per-owner lane counts [n_shards] of mixed words sorted as unsigned,
+    the valid ones first: binary searches of the owner boundaries in the
+    high halves, clipped to n_valid."""
     s_hi = u64.shr(s, 32)
     # _owner_boundaries(n_shards)[:-1], computed on the device: a host list
     # copied over would be a blocking copy per sender per batch
@@ -99,8 +110,7 @@ def bucket_sort(words: torch.Tensor, valid: torch.Tensor, n_shards: int,
     probes = (o * (1 << 32) + n_shards - 1) // n_shards
     bounds = torch.minimum(torch.searchsorted(s_hi, probes, side="left"),
                            n_valid)
-    counts = torch.cat([bounds[1:], n_valid[None]]) - bounds
-    return s, sv, _mul_shift32(s_hi, n_shards), counts
+    return torch.cat([bounds[1:], n_valid[None]]) - bounds
 
 
 def _bucket_sends(arrs, counts: torch.Tensor, capacity: int, passes: int):
@@ -210,3 +220,66 @@ def route_payload(owner_words: Sequence[torch.Tensor],
             for (planes_r, rv, ov, rr), w in zip(
                 _exchange(sorted_planes, counts, mesh, capacity, passes),
                 weights)]
+
+
+class RoutedQueries(NamedTuple):
+    """Query words on their owning shard."""
+
+    words: torch.Tensor     # int64 [D, C]: row s holds sender s's bucket
+    valid: torch.Tensor     # bool [D, C]
+    overflow: torch.Tensor  # int64 scalar: queries this sender dropped
+
+
+def route_queries(words: Sequence[torch.Tensor], valid: Sequence[torch.Tensor],
+                  mesh, capacity: int, seed: int = 0):
+    """Route each shard's query words (int64, any shape) to their owners
+    in one exchange of capacity lanes a destination, keeping the way back
+    (kmers_tpu/parallel/route.py:384-468).
+
+    Returns (routed, reply): one RoutedQueries per shard, and
+    reply(answers), which takes one [D, C] int32 answer array per owner,
+    aligned with its received lanes, carries them back by the inverse
+    all_to_all and returns, per sender, the answers at its queries'
+    positions in their shape: -1 where a query was invalid or overflowed.
+
+    A sender sorts its lanes by (mixed word, position), invalid lanes
+    mixed to MAX at position n.  The position matters: the one real query
+    whose mix is MAX (feistel_unmix(MAX)) must sort before every invalid
+    lane, or it falls out of the valid prefix.  Answers come home by a
+    scatter to the positions (JAX's union sort): each position is
+    answered at most once, so the arrays are the same."""
+    d = len(mesh)
+    sends, homes, overflow = [], [], []
+    for w, v in zip(words, valid):
+        shape = w.shape
+        w, v = w.reshape(-1), v.reshape(-1)
+        n = w.shape[0]
+        f = torch.where(v, u64.feistel_mix(w, seed), -1)
+        # (word, position) order: valid lanes first, each side in lane
+        # order, then a stable sort by the word
+        first = torch.sort((~v).to(torch.uint8), stable=True).indices
+        s, step = torch.sort(u64.to_unsigned_order(f[first]), stable=True)
+        s = u64.to_unsigned_order(s)
+        orig = first[step]
+        counts = _owner_counts(s, v.sum(), d)
+        buf = _bucket_sends((s, orig), counts, capacity, 1)(0)  # [D, 3, C]
+        sends.append(buf[:, [0, 2]])
+        in_bucket = buf[:, 2] != 0
+        homes.append((torch.where(in_bucket, buf[:, 1], n).reshape(-1), n,
+                      shape))
+        overflow.append(torch.clamp(counts - capacity, min=0).sum())
+    routed = [RoutedQueries(u64.feistel_unmix(g[:, 0], seed), g[:, 1] != 0, ov)
+              for g, ov in zip(mesh_ops.all_to_all(sends, mesh), overflow)]
+
+    def reply(answers: Sequence[torch.Tensor]) -> list:
+        out = []
+        for back, (slot, n, shape) in zip(mesh_ops.all_to_all(answers, mesh),
+                                          homes):
+            # slot n takes every unanswered lane and is cut off
+            dense = torch.full((n + 1,), -1, dtype=torch.int32,
+                               device=back.device)
+            dense[slot] = back.reshape(-1).to(torch.int32)
+            out.append(dense[:n].reshape(shape))
+        return out
+
+    return routed, reply

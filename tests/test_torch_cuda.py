@@ -444,3 +444,85 @@ def test_full_width_count_on_card_gives_the_reference_table(card, tmp_path,
         assert main(smoke.smoke_count_args(fq, out, k)
                     + ["--device", "cuda"]) == 0
     assert npz_digest(out) == smoke.SMOKE_DIGESTS[k]
+
+
+def merge_idx_sides(card, na, nb, kind, seed):
+    """K3's two sorted sides: random keys (a dead tail on both), every key
+    dead, or every key equal (ties between and within the sides)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    if kind == "random":
+        a = torch.unique(torch.randint(0, 1 << 40, (na,), device=card,
+                                       generator=g))
+        a = torch.cat([a, torch.full((na - a.shape[0],), -1, device=card)])
+        b = torch.randint(0, 1 << 40, (nb,), device=card, generator=g)
+        b[nb - nb // 8:] = u64.SIGN_BIT
+        b = u64.to_unsigned_order(torch.sort(u64.to_unsigned_order(b)).values)
+    elif kind == "dead":
+        a = torch.full((na,), -1, device=card)
+        b = torch.full((nb,), u64.SIGN_BIT, device=card)
+    else:
+        a = torch.full((na,), 12345, device=card)
+        b = torch.full((nb,), 12345, device=card)
+    a_w = torch.randint(0, 100, (na,), device=card, generator=g,
+                        dtype=torch.int32)
+    return u64.split_word(a) + (a_w,) + u64.split_word(b)
+
+
+@pytest.mark.parametrize("total", ["0", "1", "tile-1", "tile+1", "2^20+3"])
+def test_merge_idx_kernel_matches_plain(card, total):
+    """K3 with its source-index plane at nA + nB lanes on and off its tile,
+    split both ways; random, all-dead and all-equal keys."""
+    from kmers_tpu_torch.kernels import _build
+
+    tile = _build.lib().kt_merge_tile()
+    n = {"0": 0, "1": 1, "tile-1": tile - 1, "tile+1": tile + 1,
+         "2^20+3": (1 << 20) + 3}[total]
+    for na in {n // 3, n - n // 3}:
+        for kind in ("random", "dead", "equal"):
+            args = merge_idx_sides(card, na, n - na, kind, n + na)
+            kernels.reset_launch_counts()
+            got = tmerge.merge_sorted(*args, with_idx=True)
+            assert kernels.launch_counts()["merge_sorted_idx"] == 1
+            assert equal_all(got, tmerge.merge_sorted_plain(
+                *args, with_idx=True)), (na, kind)
+            assert equal_all(got[:3], tmerge.merge_sorted(*args))
+
+
+def test_lookup_arms_agree_on_card(card):
+    """make_sharded_lookup on two shards of the card: both answer arms
+    give the CPU's answers, and the merge arm launches K3 with idx and
+    K4."""
+    from kmers_tpu_torch.parallel import pipeline
+    from kmers_tpu_torch.parallel.mesh import make_mesh
+
+    reads = card_reads(card, 64, 320, 7)
+    answers = {}
+    for dev in (card, torch.device("cpu")):
+        mesh = make_mesh(devices=[dev] * 2)
+        res = pipeline.make_sharded_counter(mesh, 31, route_capacity=8192)(
+            reads.to(dev))
+        keys = torch.cat([u64.join_planes(t.keys_hi[:t.n_unique],
+                                          t.keys_lo[:t.n_unique]).cpu()
+                          for t in res.table])
+        g = torch.Generator().manual_seed(3)
+        words = torch.cat([keys[torch.randint(0, keys.shape[0], (3000,),
+                                              generator=g)],
+                           torch.randint(0, 1 << 62, (1000,), generator=g)])
+        valid = torch.rand(4000, generator=g) < 0.8
+        words[5] = u64.feistel_unmix(torch.full((1,), -1), 0)[0]
+        valid[:5], valid[5] = False, True
+        for merge in (False, True):
+            kernels.reset_launch_counts()
+            got, overflow = pipeline.make_sharded_lookup(
+                mesh, query_capacity=4096, max_k=31, merge_lookup=merge)(
+                    res.table, words.to(dev), valid.to(dev))
+            launched = kernels.launch_counts()
+            assert int(overflow) == 0
+            answers[dev.type, merge] = got.cpu()
+            if dev.type == "cuda" and merge:
+                assert launched["merge_sorted_idx"] == 2
+                assert launched["compress_flagged"] == 2
+    want = answers["cpu", False]
+    assert (want[6:3000][valid[6:3000]] > 0).all() and want[5] == 0
+    for got in answers.values():
+        assert torch.equal(got, want)

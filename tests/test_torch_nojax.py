@@ -3,7 +3,9 @@ that holds only ``kmers_tpu_torch/`` and ``native/``, with
 ``sys.modules["jax"] = None`` (any import of jax then fails), every module
 imports, and a tiny count runs on the CPU at k = 15 (on one device, and
 sharded over two CPU shards by hash and by minimizer), k = 32, k = 63 and
-k = 64.  The sources neither import nor name a path into ``kmers_tpu/``."""
+k = 64; the sharded lookup service answers over two CPU shards at both
+of its arms.  The sources neither import nor name a path into
+``kmers_tpu/``."""
 
 import ast
 import os
@@ -40,6 +42,24 @@ for part in ("hash", "minimizer"):
                  "--length", "128", "--device", "cpu", "--devices", "2",
                  "--partition", part, "--minimizer-w", "7"]) == 0
     assert npz_digest(sh) == npz_digest(out), part
+import torch
+from kmers_tpu_torch.core import u64
+from kmers_tpu_torch.io import fastx
+from kmers_tpu_torch.parallel import count, mesh, pipeline
+rows = torch.from_numpy(next(iter(fastx.read_kmer_batches(
+    fq, k=15, batch=16, length=128))))
+m2 = mesh.make_mesh(devices=["cpu"] * 2)
+shards = pipeline.make_sharded_counter(m2, 15, route_capacity=2048)(rows)
+whole = pipeline.count_reads(rows, 15).table
+q = torch.cat([u64.join_planes(whole.keys_hi[:64], whole.keys_lo[:64]),
+               torch.arange(64)])
+v = torch.arange(128) % 5 != 0
+want = torch.where(v, count.lookup(whole, q), -1)
+for merge in (False, True):
+    got, ov = pipeline.make_sharded_lookup(
+        m2, query_capacity=128, max_k=15, merge_lookup=merge)(
+            shards.table, q, v)
+    assert int(ov) == 0 and torch.equal(got, want), merge
 wide = os.path.join(sys.argv[1], "w.npz")
 assert main(["count", fq, "-k", "63", "-o", wide, "--batch", "16",
              "--length", "128", "--device", "cpu"]) == 0
