@@ -11,7 +11,9 @@ the exit code is non-zero):
   2. kernels: the hash emitters K5 and K8 driven once as bench.py's step
      (their launch counts), then each CUDA kernel against its plain
      PyTorch version on the card at main-path shapes, bit for bit (K1 also
-     at [1001, 288]); median times of both.
+     at [1001, 288], K7 at [1001, 150], K4 at 1,000,003 lanes on aligned
+     planes and on views off 16 bytes, keep bytes 1-255); median times of
+     both.
   3. end to end, k=31: `count` on a seeded E. coli-scale read set
      (4,641,652 bp genome, 1,000,000 reads of 150 bp), capacity 2^24,
      packed ingest; the table must equal an independent torch.unique
@@ -64,7 +66,8 @@ the exit code is non-zero):
  12. one K11 call on phase 8's 2^20 keys: whether the host waits for the
      card in it, the device operations it queues and the key bytes it
      moves; then the device time of each of its kernels at every phase-8
-     size, and of one K1 and K10 (seg 64), K4 (2^25) and K3 with idx
+     size, and of one K1 and K7 (k=63) at [4096, 256], K10 (seg 64), K4
+     (2^25: its memset and its one kernel) and K3 with idx
      (2^24 + 2^24) call at their timed shapes (torch.profiler, last so
      that it cannot skew the walls above).
 
@@ -92,7 +95,8 @@ DEVICE = "cuda"
 # main-path shapes: window batch [B, L], the hash emitters' batch
 # (bench.py's and bench_configs.py's), merge sides, compress lanes, and
 # the end-to-end read count (1M reads of 150 bp on a 4.6 Mbp genome)
-SIZES = dict(window=(4096, 256), window_odd=(1001, 288), hash=(2048, 1024),
+SIZES = dict(window=(4096, 256), window_odd=(1001, 288),
+             window_wide_odd=(1001, 150), hash=(2048, 1024),
              merge=1 << 24,
              compress=1 << 25, reads=1_000_000, short_reads=100_000,
              genome=4_641_652, sort_big=1 << 24, odd=1_000_003)
@@ -307,20 +311,26 @@ def phase_kernels(stats: dict, seed: int) -> None:
 
     planes, keep = compress_inputs(g)
     kept = int(keep.sum())
-    got = kmerge.compress_flagged(*planes, keep)
-    want = kmerge.compress_flagged_plain(*planes, keep)
+    # also at a length off every tile size, on views that start off 16
+    # bytes, with keep bytes other than 0 and 1 (a generator of its own:
+    # the later kernels' inputs stay put)
+    odd, odd_keep = compress_inputs(
+        torch.Generator(device=dev).manual_seed(seed + 1), SIZES["odd"] + 1)
+    odd_keep = odd_keep * torch.randint(1, 256, odd_keep.shape, device=dev,
+                                        dtype=torch.uint8)
+    err4 = max(compress_err(p, k) for p, k in (
+        (planes, keep), (odd, odd_keep), ([x[1:] for x in odd], odd_keep[1:])))
     # the library route: boolean-mask indexing of the stacked planes
     stacked, mask = torch.stack(planes), keep.bool()
     res["compress_flagged"] = dict(
-        max_abs_err=max_abs_err([x[:kept] for x in got],
-                                [x[:kept] for x in want]),
+        max_abs_err=err4,
         ms=time_ms(lambda: kmerge.compress_flagged(*planes, keep)),
         plain_ms=time_ms(lambda: kmerge.compress_flagged_plain(*planes, keep)),
         bound_ms=bound_ms(nbytes(*planes, keep) + 12 * kept),
         library_ms=time_ms(lambda: stacked[:, mask]))
 
     kernels_hash(stats, rs)
-    kernels_wide(stats, rs, g)
+    kernels_wide(stats, rs, g, seed)
 
     for name, r in res.items():
         if r["max_abs_err"]:
@@ -360,18 +370,29 @@ def merge_inputs(g) -> tuple:
     return (a_hi, a_lo, a_w) + u64.split_word(b_key)
 
 
-def compress_inputs(g) -> tuple:
-    """K4's inputs: three random planes of 2^25 lanes, about half kept."""
+def compress_inputs(g, n4: int = 0) -> tuple:
+    """K4's inputs: three random planes of n4 lanes (by default the main
+    path's 2^25), about half kept."""
     import torch
 
     from kmers_tpu_torch.core import u64
 
-    n4 = SIZES["compress"]
+    n4 = n4 or SIZES["compress"]
     planes = [u64.low32_as_int32(torch.randint(0, 1 << 32, (n4,),
                                                device=DEVICE, generator=g))
               for _ in range(3)]
     keep = (torch.rand(n4, device=DEVICE, generator=g) < 0.5).to(torch.uint8)
     return planes, keep
+
+
+def compress_err(planes, keep) -> int:
+    """max_abs_err of K4 against its plain version on the kept lanes."""
+    from kmers_tpu_torch.kernels import merge as kmerge
+
+    kept = int((keep != 0).sum())
+    return max_abs_err(
+        [x[:kept] for x in kmerge.compress_flagged(*planes, keep)],
+        [x[:kept] for x in kmerge.compress_flagged_plain(*planes, keep)])
 
 
 def kernels_hash(stats: dict, rs) -> None:
@@ -426,9 +447,11 @@ def kernels_hash(stats: dict, rs) -> None:
         bound_ms=bound_ms(nbytes(reads, *step8)), library_ms=None)
 
 
-def kernels_wide(stats: dict, rs, g) -> None:
-    """K7 at the count batch [4096, 256], k in {33, 47, 48, 63}; K6 at
-    2^24 + 2^24 lanes of 128-bit keys."""
+def kernels_wide(stats: dict, rs, g, seed: int) -> None:
+    """K7 at the count batch [4096, 256] and at [1001, 150] (the reads'
+    own length, off every run and block size), k in {33, 47, 48, 63}; K6
+    at 2^24 + 2^24 lanes of 128-bit keys."""
+    import numpy as np
     import torch
 
     from kmers_tpu_torch.core import u64, u128
@@ -438,15 +461,19 @@ def kernels_wide(stats: dict, rs, g) -> None:
     res = stats["kernels"]
     dev = torch.device(DEVICE)
     reads = torch.from_numpy(seeded_reads(rs, *SIZES["window"])).to(dev)
+    odd = torch.from_numpy(seeded_reads(np.random.RandomState(seed + 2),
+                                        *SIZES["window_wide_odd"])).to(dev)
     res["pack_canonical_keys_wide"] = dict(
-        max_abs_err=max(max_abs_err(kww.pack_canonical_keys_wide(reads, k),
-                                    kww.pack_canonical_keys_wide_plain(reads, k))
-                        for k in (33, 47, 48, 63)),
+        max_abs_err=max(max_abs_err(kww.pack_canonical_keys_wide(r, k),
+                                    kww.pack_canonical_keys_wide_plain(r, k))
+                        for k in (33, 47, 48, 63) for r in (reads, odd)),
         ms=time_ms(lambda: kww.pack_canonical_keys_wide(reads, 63)),
         plain_ms=time_ms(lambda: kww.pack_canonical_keys_wide_plain(reads, 63)),
         bound_ms=bound_ms(nbytes(reads, *kww.pack_canonical_keys_wide(reads,
                                                                       63))),
         library_ms=None)
+    stats["profiled"]["pack_canonical_keys_wide [4096, 256] k=63"] = (
+        lambda: kww.pack_canonical_keys_wide(reads, 63))
 
     # K6: a 2^24-lane table (3/4 live, k=63 keys: hi below 2^62) with
     # 2^24 sorted unit keys, half of them drawn from the table's keys, a
@@ -993,16 +1020,21 @@ def _device_ops(fn) -> dict:
 
 
 def phase_profiled(stats: dict) -> None:
-    """Phase 12, last: the device time of one call of K1, K10 at seg 64,
-    K4 at 2^25 lanes, K3 with idx at 2^24 + 2^24 and phase 13's (c)
-    lookup at each arm, as torch.profiler records it over PROFILED_CALLS
-    calls: the call's device operations alone (the six longest by name
-    where there are several), without the few us that two CUDA events add
-    to every time_ms sample."""
-    def per_call(fn) -> str:
-        ops = _device_ops(lambda: [fn() for _ in range(PROFILED_CALLS)])
-        if not ops:
-            raise AssertionError("torch.profiler saw no device operation")
+    """Phase 12, last: the device time of one call of K1, K7 at k=63,
+    K10 at seg 64, K4 at 2^25 lanes, K3 with idx at 2^24 + 2^24 and phase
+    13's (b) and (c) lookups at each arm, as torch.profiler records it
+    over PROFILED_CALLS calls: the call's device operations alone (the
+    six longest by name where there are several), without the few us that
+    two CUDA events add to every time_ms sample."""
+    def per_call(label, fn) -> str:
+        # a profile now and then comes back empty: try up to three times
+        for _ in range(3):
+            ops = _device_ops(lambda: [fn() for _ in range(PROFILED_CALLS)])
+            if ops:
+                break
+        else:
+            raise AssertionError(f"{label}: torch.profiler saw no device "
+                                 "operation in three profiles")
         ms = sorted(((us / PROFILED_CALLS / 1e3, name, n / PROFILED_CALLS)
                      for name, (n, us) in ops.items()), reverse=True)
         parts = (" (" + ", ".join(f"{name} {n:g}x {t:.5f}"
@@ -1012,7 +1044,8 @@ def phase_profiled(stats: dict) -> None:
         return f"{sum(t for t, _, _ in ms):.5f} ms{parts}"
 
     say("phase 12 profiler device time a call: " + "; ".join(
-        f"{label} {per_call(fn)}" for label, fn in stats["profiled"].items()))
+        f"{label} {per_call(label, fn)}"
+        for label, fn in stats["profiled"].items()))
 
 
 def _fold_batches(batches, count, merge, empty, capacity: int, k: int,

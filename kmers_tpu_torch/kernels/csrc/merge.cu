@@ -10,7 +10,7 @@
 //
 // All are bound by device-memory bytes: K3 moves 20 B in and 12 B out
 // per output lane (16 B out with the index plane; K6 36 B and 20 B) and
-// K4 some 13 B in and up to 12 B out, against a handful of compares
+// K4 13 B in and 12 B out a kept lane, against a handful of compares
 // each.  The design moves each byte once, in coalesced lines:
 //
 // K3/K6 merge path (Green et al.), one template on the key plane count
@@ -28,19 +28,40 @@
 // before B on equal keys.  B weight = (plane 0 >> 31) ^ 1.  The output
 // is exactly nA + nB lanes long (no pad lanes).
 //
-// K4 compaction.  A first kernel counts the kept lanes of each
-// COMPRESS_THREADS-lane block (__syncthreads_count); the wrapper takes an
-// exclusive cumsum over blocks (as merge.py:303-305 does outside its
-// kernel); the second kernel ranks each kept lane inside its block by a
-// warp ballot plus a shuffle scan of the warp totals and writes it at
-// offs[block] + rank, so kept lanes stay in order.  The TPU kernel
-// carried a partial row between sequential grid steps; blocks here run in
-// any order, so the cross-block offsets come from the count pass.
+// K4 compaction, one pass.  The TPU kernel carried a partial row between
+// sequential grid steps and took its block offsets from a cumsum outside
+// the kernel (merge.py:303-305).  Blocks here run in any order; a count
+// pass and a cumsum for the offsets would read the keep plane twice, one
+// byte a thread, and cost two more launches (with them K4 took twice its
+// bound).  So one kernel, after one memset of its scratch, moves each
+// byte once.  A block takes its CF_TILE-lane tile from an atomic ticket,
+// so every predecessor of a tile is resident or done.  Each thread reads
+// its 16 keep bytes as one 16-byte load (a lane is kept where its byte is
+// nonzero, tested byte by byte with __vcmpne4) and the three planes as
+// warp-contiguous 16-byte loads, issued before the scan so that they are
+// in flight during it.  A shuffle scan ranks the kept lanes in the tile.
+// The tile publishes its kept count as a 64-bit status word (flag and
+// count in one store, read volatile, so no fence orders them), then warp
+// 0 reads 32 predecessors' words at a time until it meets an inclusive
+// prefix (Merrill and Garland's decoupled look-back, as sort.cu does for
+// K11) and publishes its own.  The kept lanes are staged in shared memory
+// at their tile rank and written by consecutive threads to consecutive
+// addresses from the tile's global offset.  A ragged last tile, or a
+// plane or keep pointer off 16 bytes (a view such as x[1:]), takes scalar
+// loads instead.  At 2^25 lanes, half kept, it reaches about 70 % of the
+// memory rate (PERF.md, section 6); 128-thread tiles beat 64-thread ones.
 
 #include "common.cuh"
 
 #define MERGE_THREADS 256
-#define COMPRESS_THREADS 1024
+#define CF_THREADS 128
+#define CF_ITEMS 16                        // lanes a thread: one keep load
+#define CF_TILE (CF_THREADS * CF_ITEMS)    // 2048 lanes a block
+#define CF_VECS (CF_ITEMS / 4)             // 16-byte loads a thread a plane
+#define CF_AGGREGATE (1ull << 62)          // the tile's own kept count
+#define CF_PREFIX (1ull << 63)             // kept lanes in tiles 0 .. this
+#define CF_VALUE (CF_AGGREGATE - 1)
+#define CF_FULL 0xFFFFFFFFu
 
 // Lanes per thread of the NK-plane merge; tile = MERGE_THREADS * ITEMS.
 template <int NK> struct MergeItems;
@@ -204,55 +225,171 @@ static int kt_merge_launch(InPlanes<NK + 1> a, long long na, InPlanes<NK> b,
   return (int)cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(COMPRESS_THREADS)
-kt_compress_count_kernel(const uint8_t* __restrict__ keep, long long n,
-                         long long* __restrict__ counts) {
-  const long long i = (long long)blockIdx.x * COMPRESS_THREADS + threadIdx.x;
-  const int kept = __syncthreads_count(i < n && keep[i] != 0);
-  if (threadIdx.x == 0) counts[blockIdx.x] = kept;
+__device__ __forceinline__ u64 cf_load(const u64* p) {
+  return *(const volatile u64*)p;
 }
 
-__global__ void __launch_bounds__(COMPRESS_THREADS)
+__device__ __forceinline__ void cf_store(u64* p, u64 v) {
+  *(volatile u64*)p = v;
+}
+
+__device__ __forceinline__ bool cf_aligned(const void* p) {
+  return ((uintptr_t)p & 15) == 0;
+}
+
+// Bit i set where byte i of w is nonzero (any value, not only 1).
+__device__ __forceinline__ u32 cf_nonzero4(u32 w) {
+  return ((__vcmpne4(w, 0u) & 0x01010101u) * 0x01020408u) >> 24;
+}
+
+// Warp 0's decoupled look-back: publish the tile's count `total`, sum the
+// counts of the tiles before it and publish the inclusive prefix.
+// Returns the exclusive prefix (in every lane of warp 0).
+__device__ __forceinline__ long long cf_look_back(u64* status,
+                                                  long long tile,
+                                                  u32 total) {
+  const int lane = threadIdx.x & 31;
+  if (tile == 0) {
+    if (lane == 0) cf_store(status, CF_PREFIX | total);
+    return 0;
+  }
+  if (lane == 0) cf_store(status + tile, CF_AGGREGATE | total);
+  long long excl = 0;
+  // lane l reads tile t - l; a window with a tile that has published
+  // nothing yet is read again (every such tile is resident: the ticket)
+  for (long long t = tile - 1;; t -= 32) {
+    u64 s;
+    do {
+      s = t - lane >= 0 ? cf_load(status + t - lane) : CF_PREFIX;
+    } while (__any_sync(CF_FULL, !(s & (CF_AGGREGATE | CF_PREFIX))));
+    const u32 prefix = __ballot_sync(CF_FULL, (s & CF_PREFIX) != 0);
+    const int stop = prefix ? __ffs(prefix) - 1 : 31;
+    u64 add = lane <= stop ? s & CF_VALUE : 0;
+#pragma unroll
+    for (int o = 16; o; o >>= 1) add += __shfl_xor_sync(CF_FULL, add, o);
+    excl += (long long)add;
+    if (prefix) break;
+  }
+  if (lane == 0) cf_store(status + tile, CF_PREFIX | (u64)(excl + total));
+  return excl;
+}
+
+// K4: block = one CF_TILE-lane tile, taken from the ticket.  Thread t
+// owns the keep bytes of lanes 16 t .. 16 t + 15 of the tile and loads
+// the planes' lanes 4 q .. 4 q + 3 for q = j * CF_THREADS + t, so that
+// every load instruction of a warp reads contiguous bytes.
+__global__ void __launch_bounds__(CF_THREADS)
 kt_compress_kernel(const u32* __restrict__ hi, const u32* __restrict__ lo,
                    const u32* __restrict__ pay,
-                   const uint8_t* __restrict__ keep,
-                   const long long* __restrict__ offs, long long n,
+                   const uint8_t* __restrict__ keep, long long n,
                    u32* __restrict__ o_hi, u32* __restrict__ o_lo,
-                   u32* __restrict__ o_pay) {
-  __shared__ int warp_off[COMPRESS_THREADS / 32];
-  const long long i = (long long)blockIdx.x * COMPRESS_THREADS + threadIdx.x;
-  const bool kept = i < n && keep[i] != 0;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const u32 ballot = __ballot_sync(0xFFFFFFFFu, kept);
-  const int rank = __popc(ballot & ((1u << lane) - 1u));
-  if (lane == 0) warp_off[warp] = __popc(ballot);
+                   u32* __restrict__ o_pay, u32* ticket, u64* status) {
+  __shared__ u32 stage[3][CF_TILE];      // kept lanes at their tile rank
+  __shared__ u32 s_mask[CF_THREADS];     // bit i: lane 16 t + i is kept
+  __shared__ u32 s_off[CF_THREADS];      // kept lanes before lane 16 t
+  __shared__ u32 warp_sum[CF_THREADS / 32];
+  __shared__ long long s_tile, s_excl;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) s_tile = atomicAdd(ticket, 1u);
   __syncthreads();
-  if (warp == 0) {
-    // exclusive scan of the 32 warp totals by shuffles
-    const int tot = warp_off[lane];
-    int incl = tot;
+  const long long tile = s_tile;
+  const long long t0 = tile * CF_TILE;
+  const bool full = t0 + CF_TILE <= n;
+
+  const u32* src[3] = {hi, lo, pay};
+  u32 v[3][CF_ITEMS];
 #pragma unroll
-    for (int s = 1; s < 32; s <<= 1) {
-      const int up = __shfl_up_sync(0xFFFFFFFFu, incl, s);
-      if (lane >= s) incl += up;
+  for (int p = 0; p < 3; ++p) {
+    const bool vec = full && cf_aligned(src[p]);
+#pragma unroll
+    for (int j = 0; j < CF_VECS; ++j) {
+      const long long i = t0 + 4 * (j * CF_THREADS + tid);
+      if (vec) {
+        const uint4 q = *reinterpret_cast<const uint4*>(src[p] + i);
+        v[p][4 * j] = q.x;
+        v[p][4 * j + 1] = q.y;
+        v[p][4 * j + 2] = q.z;
+        v[p][4 * j + 3] = q.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[p][4 * j + e] = i + e < n ? src[p][i + e] : 0u;
+      }
     }
-    __syncwarp();
-    warp_off[lane] = incl - tot;
+  }
+  u32 m = 0;
+  const long long k0 = t0 + CF_ITEMS * tid;
+  if (full && cf_aligned(keep)) {
+    const uint4 q = *reinterpret_cast<const uint4*>(keep + k0);
+    m = cf_nonzero4(q.x) | cf_nonzero4(q.y) << 4 | cf_nonzero4(q.z) << 8 |
+        cf_nonzero4(q.w) << 12;
+  } else {
+    for (int i = 0; i < CF_ITEMS && k0 + i < n; ++i)
+      if (keep[k0 + i]) m |= 1u << i;
+  }
+
+  // exclusive scan of the threads' kept counts, in thread order
+  const u32 cnt = __popc(m);
+  u32 x = cnt;
+#pragma unroll
+  for (int s = 1; s < 32; s <<= 1) {
+    const u32 up = __shfl_up_sync(CF_FULL, x, s);
+    if (lane >= s) x += up;
+  }
+  if (lane == 31) warp_sum[warp] = x;
+  s_mask[tid] = m;
+  __syncthreads();
+  u32 before = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < CF_THREADS / 32; ++w) {
+    before += w < warp ? warp_sum[w] : 0u;
+    total += warp_sum[w];
+  }
+  s_off[tid] = before + x - cnt;
+  if (warp == 0) {
+    const long long excl = cf_look_back(status, tile, total);
+    if (lane == 0) s_excl = excl;
   }
   __syncthreads();
-  if (kept) {
-    const long long dst = offs[blockIdx.x] + warp_off[warp] + rank;
-    o_hi[dst] = hi[i];
-    o_lo[dst] = lo[i];
-    o_pay[dst] = pay[i];
+
+#pragma unroll
+  for (int j = 0; j < CF_VECS; ++j) {
+    const int q = j * CF_THREADS + tid;
+    const u32 owner = s_mask[q >> 2];
+    const int sh = 4 * (q & 3);
+    u32 r = s_off[q >> 2] + __popc(owner & ((1u << sh) - 1u));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if ((owner >> (sh + e)) & 1u) {
+        stage[0][r] = v[0][4 * j + e];
+        stage[1][r] = v[1][4 * j + e];
+        stage[2][r] = v[2][4 * j + e];
+        ++r;
+      }
+    }
   }
+  __syncthreads();
+  const long long excl = s_excl;
+  for (int i = tid; i < (int)total; i += CF_THREADS) {
+    o_hi[excl + i] = stage[0][i];
+    o_lo[excl + i] = stage[1][i];
+    o_pay[excl + i] = stage[2][i];
+  }
+}
+
+static long long kt_compress_tiles(long long n) {
+  return (n + CF_TILE - 1) / CF_TILE;
 }
 
 KT_EXPORT int kt_merge_tile() { return kt_tile<2>(); }
 
 KT_EXPORT int kt_merge_tile_wide() { return kt_tile<4>(); }
 
-KT_EXPORT int kt_compress_block() { return COMPRESS_THREADS; }
+// int64 lanes of kt_compress_flagged's scratch for n lanes: the ticket,
+// then one status word a tile.
+KT_EXPORT long long kt_compress_scratch_lanes(long long n) {
+  return kt_compress_tiles(n) + 1;
+}
 
 // K3; part: ceil((nA + nB) / kt_merge_tile()) + 1 int64 lanes.
 KT_EXPORT int kt_merge_sorted(const void* a_hi, const void* a_lo,
@@ -301,27 +438,21 @@ KT_EXPORT int kt_merge_sorted_wide(const void* a3, const void* a2,
                                    (cudaStream_t)stream);
 }
 
-// counts: ceil(n / COMPRESS_THREADS) int64 lanes.
-KT_EXPORT int kt_compress_block_counts(const void* keep, long long n,
-                                       void* counts, void* stream) {
-  if (n == 0) return 0;
-  const long long blocks = (n + COMPRESS_THREADS - 1) / COMPRESS_THREADS;
-  kt_compress_count_kernel<<<(unsigned)blocks, COMPRESS_THREADS, 0,
-                             (cudaStream_t)stream>>>(
-      (const uint8_t*)keep, n, (long long*)counts);
-  return (int)cudaGetLastError();
-}
-
-// offs: exclusive cumsum of the block counts (int64).
+// K4; scratch: kt_compress_scratch_lanes(n) int64 lanes, zeroed here on
+// the stream (the call's one memset).  Any pointer alignment.
 KT_EXPORT int kt_compress_flagged(const void* hi, const void* lo,
                                   const void* pay, const void* keep,
-                                  const void* offs, long long n, void* o_hi,
+                                  long long n, void* scratch, void* o_hi,
                                   void* o_lo, void* o_pay, void* stream) {
   if (n == 0) return 0;
-  const long long blocks = (n + COMPRESS_THREADS - 1) / COMPRESS_THREADS;
-  kt_compress_kernel<<<(unsigned)blocks, COMPRESS_THREADS, 0,
-                       (cudaStream_t)stream>>>(
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long tiles = kt_compress_tiles(n);
+  cudaError_t err = cudaMemsetAsync(
+      scratch, 0, (size_t)kt_compress_scratch_lanes(n) * sizeof(u64), st);
+  if (err != cudaSuccess) return (int)err;
+  u64* words = (u64*)scratch;
+  kt_compress_kernel<<<(unsigned)tiles, CF_THREADS, 0, st>>>(
       (const u32*)hi, (const u32*)lo, (const u32*)pay, (const uint8_t*)keep,
-      (const long long*)offs, n, (u32*)o_hi, (u32*)o_lo, (u32*)o_pay);
+      n, (u32*)o_hi, (u32*)o_lo, (u32*)o_pay, (u32*)words, words + 1);
   return (int)cudaGetLastError();
 }

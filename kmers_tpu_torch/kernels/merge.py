@@ -128,8 +128,12 @@ def compress_flagged_plain(hi, lo, pay, keep):
 
 def compress_flagged(hi, lo, pay, keep):
     """K4: stable-compact the lanes with keep != 0 to the front, carrying
-    `pay`: out[j] = (hi, lo, pay) of the j-th kept lane.  keep is uint8;
-    lanes past the kept count are unspecified."""
+    `pay`: out[j] = (hi, lo, pay) of the j-th kept lane.  keep is uint8
+    (any nonzero byte keeps its lane); lanes past the kept count are
+    unspecified.  On the card one kernel with a decoupled look-back over
+    its tiles, after one memset of the tiles' status words: no count pass
+    and no host sync.  Planes may alias one another and need not be
+    16-byte aligned."""
     n = hi.shape[0]
     _check_planes(n, hi=hi, lo=lo, pay=pay)
     check_tensor(keep, "keep", torch.uint8, (n,))
@@ -139,16 +143,12 @@ def compress_flagged(hi, lo, pay, keep):
     out = [torch.empty(n, dtype=torch.int32, device=device) for _ in range(3)]
     with torch.cuda.device(device):
         lib = _build.lib()
-        stream = torch.cuda.current_stream().cuda_stream
-        block = lib.kt_compress_block()
-        counts = torch.empty(-(-n // block), dtype=torch.int64, device=device)
-        _build.check(lib.kt_compress_block_counts(
-            keep.data_ptr(), n, counts.data_ptr(), stream),
-            "compress_flagged (block counts)")
-        offs = torch.cumsum(counts, 0) - counts
+        scratch = torch.empty(lib.kt_compress_scratch_lanes(n),
+                              dtype=torch.int64, device=device)
         code = lib.kt_compress_flagged(
-            hi.data_ptr(), lo.data_ptr(), pay.data_ptr(), keep.data_ptr(),
-            offs.data_ptr(), n, *(o.data_ptr() for o in out), stream)
+            hi.data_ptr(), lo.data_ptr(), pay.data_ptr(), keep.data_ptr(), n,
+            scratch.data_ptr(), *(o.data_ptr() for o in out),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(code, "compress_flagged")
     count_launch("compress_flagged")
     return tuple(out)

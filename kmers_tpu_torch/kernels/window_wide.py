@@ -65,7 +65,10 @@ def _launch(name: str, entry: str, reads: torch.Tensor, k: int,
 
 def pack_canonical_keys_wide(reads: torch.Tensor, k: int):
     """K7: [B, L] uint8 ASCII reads, 33 <= k <= 63 -> folded
-    (k3, k2, k1, k0) [B, L] int32 (kmers_tpu/kernels/window_wide.py:147)."""
+    (k3, k2, k1, k0) [B, L] int32 (kmers_tpu/kernels/window_wide.py:147).
+    On the card each thread builds the first window of a run of 8
+    consecutive lanes of the flattened batch and rolls the other 7 in a
+    base at a time; any L >= k."""
     check_k_range(k, 33, MAX_K, "pack_canonical_keys_wide")
     check_reads(reads, k)
     if not on_cuda(reads):

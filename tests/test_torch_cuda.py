@@ -119,6 +119,52 @@ def test_merge_kernels_edge_shapes(card, na, nb, n_keep):
                      tmerge.compress_flagged_plain(*planes, keep), cnt)
 
 
+def compress_case(card, n, p_keep, seed, offset=0):
+    """Three random planes and a keep plane of n lanes, each a view
+    `offset` lanes into its allocation; kept lanes hold a byte of
+    {1, 2, 255}, so any nonzero byte must keep its lane."""
+    rng = np.random.default_rng(seed)
+    planes = [torch.from_numpy(rng.integers(-2**31, 2**31, n + offset)
+                               .astype(np.int32)).to(card)[offset:]
+              for _ in range(3)]
+    keep = np.where(rng.random(n + offset) < p_keep,
+                    rng.choice(np.array([1, 2, 255], np.uint8), n + offset),
+                    0).astype(np.uint8)
+    return planes, torch.from_numpy(keep).to(card)[offset:]
+
+
+def check_compress(planes, keep):
+    got = tmerge.compress_flagged(*planes, keep)
+    want = tmerge.compress_flagged_plain(*planes, keep)
+    assert equal_all(got, want, int((keep != 0).sum()))
+
+
+@pytest.mark.parametrize("n", [0, 1, 15, 4095, 4097, (1 << 20) + 3])
+@pytest.mark.parametrize("p_keep", [0.0, 0.5, 1.0])
+def test_compress_kernel_matches_plain(card, n, p_keep):
+    """K4 on the kept lanes at lengths off its 2048-lane tile and its
+    16-lane keep loads, with nothing, half and everything kept."""
+    check_compress(*compress_case(card, n, p_keep, n))
+
+
+@pytest.mark.parametrize("n", [4097, (1 << 20) + 3])
+def test_compress_kernel_on_views_and_aliased_planes(card, n):
+    """K4 on planes and a keep plane that start off 16 bytes (x[1:], the
+    scalar load path), and with one tensor passed as two planes, as the
+    consolidation passes its last chunk."""
+    planes, keep = compress_case(card, n, 0.5, n + 1, offset=1)
+    check_compress(planes, keep)
+    check_compress((planes[0], planes[1], planes[0]), keep)
+    aligned, keep = compress_case(card, n, 0.5, n + 2)
+    check_compress((aligned[0], planes[1], aligned[2]), keep)
+
+
+def test_compress_kernel_look_back_across_waves(card):
+    """K4 at 2^24 + 7 lanes: 8193 tiles, more than the card holds at
+    once, so the look-back walks tiles of finished blocks."""
+    check_compress(*compress_case(card, (1 << 24) + 7, 0.5, 24))
+
+
 def test_count_on_card_gives_the_reference_table(card, tmp_path):
     fq = smoke.write_smoke_input(str(tmp_path / "smoke.fastq"))
     out = str(tmp_path / "t.npz")
@@ -164,6 +210,34 @@ def test_wide_window_kernels_match_plain(card, B, L, k):
     for seed in (0, 0xDEADBEEF, (1 << 33) + 1):
         assert equal_all(tww.pack_canonical_hash_wide(r, k, seed),
                          tww.pack_canonical_hash_wide_plain(r, k, seed))
+
+
+def run_reads(card, B, L, seed):
+    """[B, L] reads of mostly bases, a tenth of them lower case, with runs
+    of N and single other bytes, so that long windows are often valid."""
+    rng = np.random.default_rng(seed)
+    reads = np.frombuffer(b"ACGTACGTACGTACGTACGTACGTACGTACGTACGTacgt",
+                          dtype=np.uint8)[rng.integers(0, 40, (B, L))].copy()
+    for _ in range(B):
+        b, p = rng.integers(0, B), rng.integers(0, L)
+        reads[b, p:p + rng.integers(1, 40)] = ord("N")
+        reads[rng.integers(0, B), rng.integers(0, L)] = rng.choice(
+            np.frombuffer(b"nRX.\0", dtype=np.uint8))
+    return torch.from_numpy(reads).to(card)
+
+
+@pytest.mark.parametrize("k", [33, 47, 48, 62, 63])
+def test_wide_window_kernel_rolled_runs_match_plain(card, k):
+    """K7 on every lane at rows of 63 to 257 bases: its runs of 8 lanes
+    cross p = L - k and the row's end, and a row may be shorter than the
+    block's 2048 lanes or than the run's first window."""
+    for L in (63, 64, 100, 150, 257):
+        for B in (1, 7, 300):
+            r = run_reads(card, B, L, B * L + k)
+            want = tww.pack_canonical_keys_wide_plain(r, k)
+            assert equal_all(tww.pack_canonical_keys_wide(r, k), want)
+            if B == 300:             # valid lanes are among those checked
+                assert (want[0] != -(1 << 31)).any()
 
 
 @pytest.mark.parametrize("na,nb", [(40000, 50000), (0, 5), (7, 0),

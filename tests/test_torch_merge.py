@@ -80,8 +80,10 @@ def test_merge_sorted_plain_matches_pallas(nA, capA, nB, totB, bits):
         np.testing.assert_array_equal(as_u32(g), np.asarray(w)[:n])
 
 
-@pytest.mark.parametrize("n,p_keep", [(20000, 0.3), (3000, 1.0)])
+@pytest.mark.parametrize("n,p_keep", [(20000, 0.3), (3000, 1.0),
+                                      (65537, 0.5), (65537, 0.0)])
 def test_compress_flagged_plain_matches_pallas(n, p_keep):
+    """Across JAX's 65536-lane block, and with nothing kept."""
     rng = np.random.default_rng(n)
     planes = [rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
               for _ in range(3)]

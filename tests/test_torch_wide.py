@@ -164,10 +164,14 @@ def test_canonical_from_string_wide_matches_oracle(k):
 
 # -- K7 -------------------------------------------------------------------------
 
-@pytest.mark.parametrize("k", [33, 47, 48, 49, 63])
-def test_pack_canonical_keys_wide_plain_matches_pallas(k):
-    """K7: every lane, invalid lanes exactly (0x80000000, 0, 0, 0)."""
-    reads = make_reads(900 + k, 8, 256)
+@pytest.mark.parametrize("k,L", [
+    pytest.param(k, 256, id=str(k)) for k in (33, 47, 48, 49, 63)] + [
+    (33, 150), (63, 150), (47, 257), (62, 257)])
+def test_pack_canonical_keys_wide_plain_matches_pallas(k, L):
+    """K7: every lane, invalid lanes exactly (0x80000000, 0, 0, 0); also
+    at the reads' own 150 bases and at a row length off every power of
+    two."""
+    reads = make_reads(900 + k if L == 256 else L + k, 8, L)
     want = jww.pack_canonical_keys_wide(jnp.asarray(reads), k, block_rows=8,
                                         interpret=True)
     got = tww.pack_canonical_keys_wide_plain(torch.from_numpy(reads), k)
