@@ -11,20 +11,21 @@ the exit code is non-zero):
   2. kernels: the hash emitters K5 and K8 driven once as bench.py's step
      (their launch counts), then each CUDA kernel against its plain
      PyTorch version on the card at main-path shapes, bit for bit (K1 also
-     at [1001, 288], K7 at [1001, 150], K4 at 1,000,003 lanes on aligned
-     planes and on views off 16 bytes, keep bytes 1-255); median times of
-     both.
+     at [1001, 288], K2 and K7 at [1001, 150], K8 at [1001, 150] and
+     [7, 257], K4 at 1,000,003 lanes on aligned planes and on views off 16
+     bytes, keep bytes 1-255); median times of both.
   3. end to end, k=31: `count` on a seeded E. coli-scale read set
      (4,641,652 bp genome, 1,000,000 reads of 150 bp), capacity 2^24,
      packed ingest; the table must equal an independent torch.unique
      count of the plain windows, and the run must have launched the
      window (K1), merge (K3) and compress (K4) kernels.  A shorter
-     --ascii-ingest run must launch K2 and give the packed run's table.
+     --ascii-ingest run must launch K2 and give the packed run's table;
+     the walls of both 100k-read runs.
   4. end to end, k=63 (128-bit keys): the same run on the same reads;
      the table must equal an independent torch.unique(dim=0) count of
      the plain wide windows, and the run must have launched the wide
      merge (K6) and K4.  The shorter --ascii-ingest run must launch K7
-     and give the packed run's table.
+     and give the packed run's table; both walls.
   5. against the JAX package, at k=31 and k=63: the small fixed input's
      table digest must equal SMOKE_DIGEST / SMOKE_DIGEST_WIDE (pinned by
      the tests to kmers_tpu's CPU output); an evicting run exits 3 and
@@ -66,10 +67,10 @@ the exit code is non-zero):
  12. one K11 call on phase 8's 2^20 keys: whether the host waits for the
      card in it, the device operations it queues and the key bytes it
      moves; then the device time of each of its kernels at every phase-8
-     size, and of one K1 and K7 (k=63) at [4096, 256], K10 (seg 64), K4
-     (2^25: its memset and its one kernel) and K3 with idx
-     (2^24 + 2^24) call at their timed shapes (torch.profiler, last so
-     that it cannot skew the walls above).
+     size, and of one K1, K2 (k=31) and K7 (k=63) at [4096, 256], K8
+     (k=63) at [2048, 1024], K10 (seg 64), K4 (2^25: its memset and its
+     one kernel) and K3 with idx (2^24 + 2^24) call at their timed shapes
+     (torch.profiler, last so that it cannot skew the walls above).
 
 The last three lines: `nvidia-smi` name and power limit, a JSON object
 of the kernels' launches, errors and times, and
@@ -96,7 +97,7 @@ DEVICE = "cuda"
 # (bench.py's and bench_configs.py's), merge sides, compress lanes, and
 # the end-to-end read count (1M reads of 150 bp on a 4.6 Mbp genome)
 SIZES = dict(window=(4096, 256), window_odd=(1001, 288),
-             window_wide_odd=(1001, 150), hash=(2048, 1024),
+             ascii_odd=(1001, 150), hash=(2048, 1024), hash_tiny=(7, 257),
              merge=1 << 24,
              compress=1 << 25, reads=1_000_000, short_reads=100_000,
              genome=4_641_652, sort_big=1 << 24, odd=1_000_003)
@@ -283,6 +284,12 @@ def phase_kernels(stats: dict, seed: int) -> None:
         e1 = max(e1, max_abs_err(
             kwin.pack_canonical_keys_packed(odd_w, odd_v, k),
             kwin.pack_canonical_keys_packed_plain(odd_w, odd_v, k)))
+    # K2 also at the reads' own length, off every run and tile size
+    odd_r = torch.from_numpy(seeded_reads(np.random.RandomState(seed + 3),
+                                          *SIZES["ascii_odd"])).to(dev)
+    for k in (1, 15, 16, 17, 31):
+        e2 = max(e2, max_abs_err(kwin.pack_canonical_keys(odd_r, k),
+                                 kwin.pack_canonical_keys_plain(odd_r, k)))
     res["pack_canonical_keys_packed"] = dict(
         max_abs_err=e1,
         ms=time_ms(lambda: kwin.pack_canonical_keys_packed(words, vbits, 31)),
@@ -298,6 +305,8 @@ def phase_kernels(stats: dict, seed: int) -> None:
         plain_ms=time_ms(lambda: kwin.pack_canonical_keys_plain(reads, 31)),
         bound_ms=bound_ms(nbytes(reads, *kwin.pack_canonical_keys(reads, 31))),
         library_ms=None)
+    stats["profiled"]["pack_canonical_keys [4096, 256]"] = (
+        lambda: kwin.pack_canonical_keys(reads, 31))
 
     g = torch.Generator(device=dev).manual_seed(seed)
     args3 = merge_inputs(g)
@@ -329,7 +338,7 @@ def phase_kernels(stats: dict, seed: int) -> None:
         bound_ms=bound_ms(nbytes(*planes, keep) + 12 * kept),
         library_ms=time_ms(lambda: stacked[:, mask]))
 
-    kernels_hash(stats, rs)
+    kernels_hash(stats, rs, seed)
     kernels_wide(stats, rs, g, seed)
 
     for name, r in res.items():
@@ -395,12 +404,14 @@ def compress_err(planes, keep) -> int:
         [x[:kept] for x in kmerge.compress_flagged_plain(*planes, keep)])
 
 
-def kernels_hash(stats: dict, rs) -> None:
+def kernels_hash(stats: dict, rs, seed: int) -> None:
     """K5 and K8 at bench.py's / bench_configs.py's [2048, 1024]: driven
     once as the benchmark step (the launch counts reset just before and
     read just after), then held against their plain versions (K5 at
     k in {1, 16, 17, 31, 32}, K8 at k in {33, 48, 63, 64}, two seeds, every
-    lane) and timed at k=31 / k=63."""
+    lane; K8 also at [1001, 150] and [7, 257], k in {33, 63, 64}) and timed
+    at k=31 / k=63."""
+    import numpy as np
     import torch
 
     from kmers_tpu_torch import kernels
@@ -436,15 +447,24 @@ def kernels_hash(stats: dict, rs) -> None:
         ms=time_ms(lambda: kwin.pack_canonical_hash(reads, 31)),
         plain_ms=time_ms(lambda: kwin.pack_canonical_hash_plain(reads, 31)),
         bound_ms=bound_ms(nbytes(reads, *step5)), library_ms=None)
+    # K8 also at rows off every run and tile size (reads of their own
+    # seed: the later kernels' inputs stay put)
+    rs_odd = np.random.RandomState(seed + 4)
+    odd = [torch.from_numpy(seeded_reads(rs_odd, *SIZES[name])).to(DEVICE)
+           for name in ("ascii_odd", "hash_tiny")]
+    cases = ([(reads, k) for k in (33, 48, 63, 64)]
+             + [(r, k) for r in odd for k in (33, 63, 64)])
     res["pack_canonical_hash_wide"] = dict(
         max_abs_err=max(
-            max_abs_err(kww.pack_canonical_hash_wide(reads, k, s),
-                        kww.pack_canonical_hash_wide_plain(reads, k, s))
-            for k in (33, 48, 63, 64) for s in seeds),
+            max_abs_err(kww.pack_canonical_hash_wide(r, k, s),
+                        kww.pack_canonical_hash_wide_plain(r, k, s))
+            for r, k in cases for s in seeds),
         ms=time_ms(lambda: kww.pack_canonical_hash_wide(reads, 63)),
         plain_ms=time_ms(
             lambda: kww.pack_canonical_hash_wide_plain(reads, 63)),
         bound_ms=bound_ms(nbytes(reads, *step8)), library_ms=None)
+    stats["profiled"]["pack_canonical_hash_wide [2048, 1024] k=63"] = (
+        lambda: kww.pack_canonical_hash_wide(reads, 63))
 
 
 def kernels_wide(stats: dict, rs, g, seed: int) -> None:
@@ -462,7 +482,7 @@ def kernels_wide(stats: dict, rs, g, seed: int) -> None:
     dev = torch.device(DEVICE)
     reads = torch.from_numpy(seeded_reads(rs, *SIZES["window"])).to(dev)
     odd = torch.from_numpy(seeded_reads(np.random.RandomState(seed + 2),
-                                        *SIZES["window_wide_odd"])).to(dev)
+                                        *SIZES["ascii_odd"])).to(dev)
     res["pack_canonical_keys_wide"] = dict(
         max_abs_err=max(max_abs_err(kww.pack_canonical_keys_wide(r, k),
                                     kww.pack_canonical_keys_wide_plain(r, k))
@@ -636,10 +656,16 @@ def phase_end_to_end(stats: dict, seed: int, workdir: str, k: int,
     # gives the packed run's table
     p_out = os.path.join(workdir, f"ecoli_100k_k{k}_packed.npz")
     a_out = os.path.join(workdir, f"ecoli_100k_k{k}_ascii.npz")
+    t0 = time.time()
     rc_p, _, err_p = run_cli(["count", small, "-o", p_out] + count_args)
+    sync()
+    wall_p = time.time() - t0
     kernels.reset_launch_counts()
+    t0 = time.time()
     rc_a, _, err_a = run_cli(["count", small, "-o", a_out, "--ascii-ingest"]
                              + count_args)
+    sync()
+    wall_a = time.time() - t0
     ascii_launches = kernels.launch_counts()
     if rc_p or rc_a:
         raise AssertionError(f"100k runs exited {rc_p}, {rc_a}:\n{err_p}{err_a}")
@@ -655,13 +681,14 @@ def phase_end_to_end(stats: dict, seed: int, workdir: str, k: int,
     stats[f"e2e_k{k}"] = dict(wall_s=wall, kmers=sc.kmers, distinct=nu,
                               kmers_per_s=sc.kmers / wall, peak_bytes=peak,
                               reads=SIZES["reads"], bases=bases,
-                              launches=launches)
+                              launches=launches, short_packed_wall_s=wall_p,
+                              short_ascii_wall_s=wall_a)
     say(f"phase {phase} end to end k={k}: {bases} bases, "
         f"{sc.kmers} kmers, {nu} distinct in {wall:.3f}s = "
         f"{sc.kmers / wall:.4g} kmers/s, peak device memory "
         f"{peak / 2**20:.1f} MiB; table == torch.unique count; launches "
-        f"{ {n: c for n, c in launches.items() if c} }; --ascii-ingest "
-        f"table == packed"
+        f"{ {n: c for n, c in launches.items() if c} }; 100k reads: packed "
+        f"{wall_p:.3f}s, --ascii-ingest {wall_a:.3f}s, table == packed"
         + (f" ({ascii_window} {ascii_launches[ascii_window]})"
            if ascii_window else ""))
 
@@ -1020,12 +1047,13 @@ def _device_ops(fn) -> dict:
 
 
 def phase_profiled(stats: dict) -> None:
-    """Phase 12, last: the device time of one call of K1, K7 at k=63,
-    K10 at seg 64, K4 at 2^25 lanes, K3 with idx at 2^24 + 2^24 and phase
-    13's (b) and (c) lookups at each arm, as torch.profiler records it
-    over PROFILED_CALLS calls: the call's device operations alone (the
-    six longest by name where there are several), without the few us that
-    two CUDA events add to every time_ms sample."""
+    """Phase 12, last: the device time of one call of K1, K2 at k=31, K7
+    and K8 at k=63, K10 at seg 64, K4 at 2^25 lanes, K3 with idx at
+    2^24 + 2^24 and phase 13's (b) and (c) lookups at each arm, as
+    torch.profiler records it over PROFILED_CALLS calls: the call's device
+    operations alone (the six longest by name where there are several),
+    without the few us that two CUDA events add to every time_ms
+    sample."""
     def per_call(label, fn) -> str:
         # a profile now and then comes back empty: try up to three times
         for _ in range(3):

@@ -51,6 +51,80 @@ __device__ __forceinline__ u32 kt_code(u32 c, bool* ok) {
   return internal ^ (internal >> 1);
 }
 
+// The not-a-base flag of a staged code byte (kt_code_flag4).
+#define KT_NOT_BASE 4
+
+// Four ASCII bytes at once: each byte's 2-bit code, plus KT_NOT_BASE where
+// it is not one of ACGTacgt (kt_code, byte by byte).
+__device__ __forceinline__ u32 kt_code_flag4(u32 w) {
+  const u32 internal = (w >> 1) & 0x03030303u;   // A=0 C=1 T=2 G=3
+  const u32 lower = w | 0x20202020u;
+  const u32 ok = __vcmpeq4(lower, 0x61616161u) | __vcmpeq4(lower, 0x63636363u) |
+                 __vcmpeq4(lower, 0x67676767u) | __vcmpeq4(lower, 0x74747474u);
+  return (internal ^ ((internal >> 1) & 0x01010101u)) | (~ok & 0x04040404u);
+}
+
+// Stage the THREADS * RUN bytes of the flattened batch (n bytes) from t0,
+// plus the (k-1)-byte halo, as code bytes (kt_code_flag4) in seg, by the
+// THREADS threads tid = 0 .. THREADS - 1 (a block's, or a warp's lanes):
+// one 8-byte load a thread where the tile and its halo lie inside the
+// batch and the batch is 8-byte aligned, else byte by byte with 'A'
+// (code 0, a base) past n.  1 <= k <= THREADS + 1; the caller syncs.
+template <int THREADS, int RUN>
+__device__ __forceinline__ void kt_stage_codes(const uint8_t* reads,
+                                               uint8_t* seg, long long t0,
+                                               long long n, int k, int tid) {
+  static_assert(RUN == 8, "a run of 8 lanes: one 8-byte load a thread");
+  constexpr int TILE = THREADS * RUN;
+  if (t0 + TILE + k - 1 <= n && ((uintptr_t)reads & 7) == 0) {
+    const uint2 w = *reinterpret_cast<const uint2*>(reads + t0 + 8 * tid);
+    *reinterpret_cast<uint2*>(&seg[8 * tid]) =
+        make_uint2(kt_code_flag4(w.x), kt_code_flag4(w.y));
+    if (tid < k - 1)
+      seg[TILE + tid] = (uint8_t)kt_code_flag4(reads[t0 + TILE + tid]);
+  } else {
+    for (int i = tid; i < TILE + k - 1; i += THREADS)
+      seg[i] = (uint8_t)kt_code_flag4(t0 + i < n ? reads[t0 + i] : 'A');
+  }
+}
+
+// Stage a thread's NP x RUN output words (RUN consecutive lanes from lane
+// b of the tile) in shared memory, as 16-byte stores.
+template <int TILE, int NP, int RUN>
+__device__ __forceinline__ void kt_put_run(u32 (*planes)[TILE],
+                                           const u32 (&out)[NP][RUN], int b) {
+#pragma unroll
+  for (int j = 0; j < NP; ++j)
+#pragma unroll
+    for (int i = 0; i < RUN; i += 4)
+      *reinterpret_cast<uint4*>(&planes[j][b + i]) =
+          make_uint4(out[j][i], out[j][i + 1], out[j][i + 2], out[j][i + 3]);
+}
+
+// Write NP staged planes of a TILE-lane tile to lanes t0 .. of dst (n
+// lanes in all), by the THREADS threads tid = 0 .. THREADS - 1, as 16-byte
+// stores, each warp store on 512 contiguous bytes, with a scalar tail at
+// n.  The destinations are fresh allocations, so 16-byte aligned; the
+// caller syncs before.
+template <int THREADS, int TILE, int NP>
+__device__ __forceinline__ void kt_store_tile(const u32 (*planes)[TILE],
+                                              u32* const (&dst)[NP],
+                                              long long t0, long long n,
+                                              int tid) {
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    for (int q = tid; q < TILE / 4; q += THREADS) {
+      const long long f = t0 + 4 * q;
+      if (f + 4 <= n) {
+        *reinterpret_cast<uint4*>(dst[j] + f) =
+            *reinterpret_cast<const uint4*>(&planes[j][4 * q]);
+      } else {
+        for (int e = 0; f + e < n; ++e) dst[j][f + e] = planes[j][4 * q + e];
+      }
+    }
+  }
+}
+
 // Stage one row segment of a [B, L] byte batch plus its (k-1)-byte halo
 // in shared memory: seg[i] = byte p0 + i of row `row`, `fill` past L.
 // Ends with __syncthreads().

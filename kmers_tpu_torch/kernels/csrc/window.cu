@@ -12,13 +12,38 @@
 // the four words zero on invalid lanes (window.py:177-186).
 //
 // All three should be bound by device-memory bytes: 8 (K5: 17) bytes
-// written a lane against 0.375 (K1) or 1 (K2, K5) read.  K2 and K5 run
-// one thread per output lane, so each 32-bit store of a warp is one
-// contiguous 128-byte line, and stage a row segment plus its (k-1)-byte
-// halo in shared memory once, so every input byte crosses device memory
-// once.  The TPU kernel's q-layout, rolls, L % 128 limit and block-row
-// limit were workarounds for Mosaic and have no counterpart here: the
-// unit table is a multiset, so p-order serves it for any L % 32 == 0.
+// written a lane against 0.375 (K1) or 1 (K2, K5) read.  The TPU kernel's
+// q-layout, rolls, L % 128 limit and block-row limit were workarounds for
+// Mosaic and have no counterpart here: the unit table is a multiset, so
+// p-order serves it for any L % 32 == 0.
+//
+// K5 still runs one thread per output lane, until it takes up K2's rolled
+// body (kt_roll_canonical64): a block stages a row segment plus its
+// (k-1)-byte halo in shared memory once, and each thread rebuilds its
+// lane's whole window from k bytes (kt_window64, four compares a byte) and
+// runs the 5-step reverse-complement ladder, some 10k + 25 integer
+// operations a lane, so at k = 31 the integer rate, not device memory,
+// bounds it, and each of its stores is one 4-byte store a lane and plane.
+//
+// K2 ran that body too, at 7 % of its 9-byte-a-lane memory bound.  Now it
+// takes K7's rolled runs (window_wide.cu) in 64 bits, in tiles of one
+// warp.  A warp takes K2_WARP_TILE consecutive lanes of the flattened
+// [B, L] batch and stages them with their halo as code bytes
+// (kt_stage_codes: one 8-byte load a lane, each byte decoded once).  Each
+// lane builds the first window of its run of K2_RUN lanes, from four
+// 8-byte loads of those codes, and that window's reverse complement once,
+// then rolls the other lanes in a base at a time (kt_roll_canonical64),
+// some 12 operations a lane.  A lane is valid where the bases counted
+// since the last non-base byte reach k and its base p in its row is at
+// most L - k: a run may cross into the next row, whose bytes then fill
+// only lanes past L - k, which fold to the invalid constant whatever they
+// hold, so any L >= k works.  The two planes are staged in the warp's
+// shared memory and leave as 16-byte stores of its contiguous lane range
+// (kt_store_tile), each store on 512 contiguous bytes: K1's direct 16-byte
+// stores from a row chunk would need L % 4 == 0, and K2 takes any L.  No
+// warp waits for another: block tiles as K7's, staged and stored across
+// the block between two barriers, were slower, and runs of 16 lanes no
+// faster (PERF.md, section 6).
 //
 // K1 first ran one thread a lane too.  Each lane paid a 64-bit division
 // by L for its row, five bounds-checked loads, its window rebuilt from
@@ -38,22 +63,13 @@
 
 #include "common.cuh"
 
-#define WIN_THREADS 256
+#define WIN_THREADS 256                 // K5: lanes (threads) a block
 
-// Shared tail of K1, K2 and K5 (window.py:_canon_hash_tail): reverse
-// complement by complement + swap ladder + shift, canonical = min(fw, rc)
-// by (hi, lo).
+// Tail of K5 (window.py:_canon_hash_tail): reverse complement by
+// complement + swap ladder + shift, canonical = min(fw, rc) by (hi, lo).
 __device__ __forceinline__ u64 kt_canonical64(u64 fw, int k) {
   const u64 rc = kt_revcomp64(fw, k);
   return fw < rc ? fw : rc;
-}
-
-// K1/K2: the canonical word with the invalid flag folded in.
-__device__ __forceinline__ void kt_fold_canonical(u64 fw, int k, bool valid,
-                                                  u32* out_hi, u32* out_lo) {
-  const u64 c = kt_canonical64(fw, k);
-  *out_hi = valid ? (u32)(c >> 32) : KT_INVALID_HI;
-  *out_lo = valid ? (u32)c : 0u;
 }
 
 // The forward word of the window at seg[t..t+k-1] (k <= 32) and whether
@@ -141,27 +157,108 @@ kt_pack_keys_packed_kernel(const u32* __restrict__ words,
   }
 }
 
-// K2: block = one WIN_THREADS-lane segment of one row; the segment's
-// bytes plus a (k-1)-byte halo are staged in shared memory ('N' past L).
-__global__ void kt_pack_keys_ascii_kernel(const uint8_t* __restrict__ reads,
-                                          u32* __restrict__ out_hi,
-                                          u32* __restrict__ out_lo,
-                                          int L, int k, int segs) {
-  extern __shared__ uint8_t seg[];
-  const long long row = blockIdx.x / segs;
-  const int p0 = (int)(blockIdx.x % segs) * WIN_THREADS;
-  kt_stage_segment(reads, seg, row, p0, WIN_THREADS + k - 1, L, 'N');
-  const int p = p0 + threadIdx.x;
-  if (p >= L) return;
-
-  bool bases;
-  const u64 fw = kt_window64(seg, threadIdx.x, k, &bases);
-  const long long lane = row * L + p;
-  kt_fold_canonical(fw, k, bases && p <= L - k, out_hi + lane,
-                    out_lo + lane);
+// The 2-bit codes of 8 staged code bytes (kt_code_flag4), packed into
+// 16 bits, byte 0's lowest.
+__device__ __forceinline__ u64 kt_pack_codes8(u64 w) {
+  w &= 0x0303030303030303ull;
+  w = (w | (w >> 6)) & 0x000F000F000F000Full;
+  w = (w | (w >> 12)) & 0x000000FF000000FFull;
+  return (w | (w >> 24)) & 0xFFFFull;
 }
 
-// K5: as K2, plus the mixer hash of the canonical word; k <= 32.
+// The not-a-base flags of 8 staged code bytes as 8 bits, byte 0's lowest.
+__device__ __forceinline__ u32 kt_pack_flags8(u64 w) {
+  w = (w >> 2) & 0x0101010101010101ull;
+  w = (w | (w >> 7)) & 0x0003000300030003ull;
+  w = (w | (w >> 14)) & 0x0000000F0000000Full;
+  return (u32)((w | (w >> 28)) & 0xFFull);
+}
+
+#define K2_RUN 8                        // lanes a thread: 1 built, 7 rolled
+#define K2_WARP_TILE (32 * K2_RUN)      // lanes a warp: its own tile
+#define K2_WARPS 8                      // warps a block
+
+// The rolled narrow body (K2; K5 may take it up), 1 <= k <= 32: the
+// canonical words of the RUN lanes whose windows start at seg[b], seg[b+1],
+// ... (code bytes, kt_stage_codes), the first at base p of its row, and
+// whether each is valid (its k bytes are bases and its base in its row is
+// at most L - k).  The first window and its reverse complement are built
+// once; each later lane rolls in one base (fw = fw >> 2 | c << 2(k-1),
+// rc = (rc << 2 | 3 - c) & mask).
+template <int RUN>
+__device__ __forceinline__ void kt_roll_canonical64(const uint8_t* seg, int b,
+                                                    int k, int p, int L,
+                                                    u64 (&canon)[RUN],
+                                                    bool (&valid)[RUN]) {
+  const u64 mask = ~0ull >> (64 - 2 * k);
+  // the first window from staged bytes b .. b + 31 (b % 8 == 0) in four
+  // 8-byte loads: the codes packed 8 at a time, the not-a-base flags as a
+  // bit mask whose highest bit under k gives the bases since the last
+  // non-base byte
+  u64 fw = 0;
+  u32 flags = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const u64 w = *reinterpret_cast<const u64*>(seg + b + 8 * q);
+    fw |= kt_pack_codes8(w) << (16 * q);
+    flags |= kt_pack_flags8(w) << (8 * q);
+  }
+  fw &= mask;
+  int run = k - 32 + __clz(flags & (~0u >> (32 - k)));
+  u64 rc = kt_revcomp64(fw, k);
+#pragma unroll
+  for (int i = 0; i < RUN; ++i) {
+    if (i) {                        // roll in base b + k - 1 + i
+      const u32 e = seg[b + k - 1 + i];
+      const u64 c = e & 3u;
+      fw = (fw >> 2) | (c << (2 * k - 2));
+      rc = ((rc << 2) | (3 - c)) & mask;
+      run = e & KT_NOT_BASE ? 0 : run + 1;
+      if (++p == L) p = 0;
+    }
+    canon[i] = fw < rc ? fw : rc;
+    valid[i] = run >= k && p <= L - k;
+  }
+}
+
+// K2: warp w of block x = the K2_WARP_TILE consecutive lanes of the
+// flattened [B, L] batch (n lanes) from (K2_WARPS x + w) K2_WARP_TILE,
+// lane t the lanes K2_RUN t .. K2_RUN t + K2_RUN - 1 of it; 1 <= k <= 31,
+// so bit 31 of hi is clear on a valid lane.  The warps share no data, so
+// each stages, rolls and stores without waiting for the others.
+__global__ void __launch_bounds__(32 * K2_WARPS)
+kt_pack_keys_ascii_kernel(const uint8_t* __restrict__ reads,
+                          u32* __restrict__ out_hi, u32* __restrict__ out_lo,
+                          long long n, int L, int k) {
+  // code | NOT_BASE bytes, then the two planes, of each warp's tile
+  __shared__ __align__(16) uint8_t segs[K2_WARPS][K2_WARP_TILE + 32];
+  __shared__ __align__(16) u32 planes[K2_WARPS][2][K2_WARP_TILE];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long t0 = ((long long)blockIdx.x * K2_WARPS + w) * K2_WARP_TILE;
+  if (t0 >= n) return;
+  kt_stage_codes<32, K2_RUN>(reads, segs[w], t0, n, k, lane);
+  __syncwarp();
+
+  const int b = K2_RUN * lane;
+  u64 canon[K2_RUN];
+  bool valid[K2_RUN];
+  kt_roll_canonical64<K2_RUN>(segs[w], b, k, (int)((t0 + b) % L), L, canon,
+                              valid);
+  u32 out[2][K2_RUN];
+#pragma unroll
+  for (int i = 0; i < K2_RUN; ++i) {
+    out[0][i] = valid[i] ? (u32)(canon[i] >> 32) : KT_INVALID_HI;
+    out[1][i] = valid[i] ? (u32)canon[i] : 0u;
+  }
+  kt_put_run(planes[w], out, b);
+  __syncwarp();
+  u32* const dst[2] = {out_hi, out_lo};
+  kt_store_tile<32, K2_WARP_TILE, 2>(planes[w], dst, t0, n, lane);
+}
+
+// K5, k <= 32: block = one WIN_THREADS-lane segment of one row, its bytes
+// plus a (k-1)-byte halo staged in shared memory ('N' past L), one thread a
+// lane; the canonical word and its mixer hash.
 __global__ void kt_pack_hash_ascii_kernel(const uint8_t* __restrict__ reads,
                                           u32* __restrict__ canon_hi,
                                           u32* __restrict__ canon_lo,
@@ -206,13 +303,12 @@ KT_EXPORT int kt_pack_keys_packed(const void* words, const void* vbits,
 KT_EXPORT int kt_pack_keys_ascii(const void* reads, void* out_hi,
                                  void* out_lo, int B, int L, int k,
                                  void* stream) {
-  if ((long long)B * L == 0) return 0;
-  const int segs = (L + WIN_THREADS - 1) / WIN_THREADS;
-  const long long blocks = (long long)B * segs;
-  const size_t smem = WIN_THREADS + k - 1;
-  kt_pack_keys_ascii_kernel<<<(unsigned)blocks, WIN_THREADS, smem,
-                              (cudaStream_t)stream>>>(
-      (const uint8_t*)reads, (u32*)out_hi, (u32*)out_lo, L, k, segs);
+  const long long n = (long long)B * L;
+  if (n == 0) return 0;
+  const long long block_lanes = K2_WARPS * K2_WARP_TILE;
+  kt_pack_keys_ascii_kernel<<<(unsigned)((n + block_lanes - 1) / block_lanes),
+                              32 * K2_WARPS, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)reads, (u32*)out_hi, (u32*)out_lo, n, L, k);
   return (int)cudaGetLastError();
 }
 

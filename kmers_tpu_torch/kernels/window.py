@@ -75,7 +75,10 @@ def check_reads(reads: torch.Tensor, k: int) -> tuple:
 
 def pack_canonical_keys(reads: torch.Tensor, k: int):
     """K2: [B, L] uint8 ASCII reads -> folded (key_hi, key_lo) [B, L]
-    int32."""
+    int32 (kmers_tpu/kernels/window.py:391, stage "canon").  On the card
+    each thread builds the first window of a run of 8 consecutive lanes of
+    the flattened batch and rolls the other 7 in a base at a time; any
+    L >= k."""
     check_k_range(k, 1, NARROW_MAX_K, "pack_canonical_keys")
     B, L = check_reads(reads, k)
     if not on_cuda(reads):

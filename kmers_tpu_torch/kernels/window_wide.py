@@ -80,7 +80,10 @@ def pack_canonical_keys_wide(reads: torch.Tensor, k: int):
 def pack_canonical_hash_wide(reads: torch.Tensor, k: int, seed: int = 0):
     """K8: [B, L] uint8 ASCII reads, 33 <= k <= 64 -> (c0, c1, c2, c3,
     hash_hi, hash_lo) [B, L] int32 and valid [B, L] uint8
-    (kmers_tpu/kernels/window_wide.py:178)."""
+    (kmers_tpu/kernels/window_wide.py:178).  On the card it rolls runs of
+    8 lanes as K7 does, and masks the bases of a window that pass its
+    row's end to code 0, so that invalid lanes too hold the plain
+    version's words."""
     check_k_range(k, 33, 64, "pack_canonical_hash_wide")
     check_reads(reads, k)
     if not on_cuda(reads):

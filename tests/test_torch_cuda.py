@@ -226,18 +226,55 @@ def run_reads(card, B, L, seed):
     return torch.from_numpy(reads).to(card)
 
 
-@pytest.mark.parametrize("k", [33, 47, 48, 62, 63])
-def test_wide_window_kernel_rolled_runs_match_plain(card, k):
-    """K7 on every lane at rows of 63 to 257 bases: its runs of 8 lanes
-    cross p = L - k and the row's end, and a row may be shorter than the
-    block's 2048 lanes or than the run's first window."""
-    for L in (63, 64, 100, 150, 257):
+def off_16_bytes(reads):
+    """The same reads in a tensor whose data starts 3 bytes into its
+    allocation, so that the kernels stage them byte by byte."""
+    flat = torch.empty(reads.numel() + 3, dtype=torch.uint8,
+                       device=reads.device)[3:]
+    return flat.copy_(reads.reshape(-1)).view(reads.shape)
+
+
+@pytest.mark.parametrize("k", [1, 2, 15, 16, 17, 30, 31])
+def test_window_kernel_rolled_runs_match_plain(card, k):
+    """K2 on every lane at rows of k to 257 bases: its runs of 8 lanes
+    cross p = L - k and the row's end, a row may be shorter than the
+    block's 2048 lanes or than the run, and the 7-row batches also start
+    off 8 bytes."""
+    for L in sorted({k, 31, 64, 100, 150, 257}):
         for B in (1, 7, 300):
             r = run_reads(card, B, L, B * L + k)
-            want = tww.pack_canonical_keys_wide_plain(r, k)
-            assert equal_all(tww.pack_canonical_keys_wide(r, k), want)
+            if B == 7:
+                r = off_16_bytes(r)
+            want = twin.pack_canonical_keys_plain(r, k)
+            assert equal_all(twin.pack_canonical_keys(r, k), want)
             if B == 300:             # valid lanes are among those checked
                 assert (want[0] != -(1 << 31)).any()
+
+
+@pytest.mark.parametrize("k", [33, 47, 48, 62, 63, 64])
+def test_wide_window_kernel_rolled_runs_match_plain(card, k):
+    """K7 (k <= 63) and K8 (two seeds, one above 2^32) on every lane at
+    rows of k to 257 bases: their runs of 8 lanes cross p = L - k and the
+    row's end (where K8 rolls in the next row's bases and must mask them
+    to the plain version's code 0), a row may be shorter than a block's
+    1024 or 2048 lanes or than the run's first window, and the 7-row
+    batches also start off 8 bytes."""
+    for L in sorted({k, 63, 64, 100, 150, 257} - set(range(k))):
+        for B in (1, 7, 300):
+            r = run_reads(card, B, L, B * L + k)
+            if B == 7:
+                r = off_16_bytes(r)
+            if k <= 63:
+                want = tww.pack_canonical_keys_wide_plain(r, k)
+                assert equal_all(tww.pack_canonical_keys_wide(r, k), want)
+                if B == 300:         # valid lanes are among those checked
+                    assert (want[0] != -(1 << 31)).any()
+            for seed in (0, (1 << 33) + 1):
+                want = tww.pack_canonical_hash_wide_plain(r, k, seed)
+                assert equal_all(tww.pack_canonical_hash_wide(r, k, seed),
+                                 want)
+                if B == 300:
+                    assert want[6].any()
 
 
 @pytest.mark.parametrize("na,nb", [(40000, 50000), (0, 5), (7, 0),

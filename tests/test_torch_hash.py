@@ -93,16 +93,20 @@ def test_pack_canonical_hash_plain_matches_pallas(k, seed):
 
 @pytest.mark.parametrize("k", [33, 47, 48, 49, 63, 64])
 def test_pack_canonical_hash_wide_plain_matches_pallas(k):
-    """K8: valid lanes (invalid lanes are not zeroed on either side)."""
-    reads = make_reads(600 + k, 8, 256)
-    want = jww.pack_canonical_hash_wide(jnp.asarray(reads), k, seed=7,
-                                        block_rows=8, interpret=True)
-    got = tww.pack_canonical_hash_wide_plain(torch.from_numpy(reads), k, 7)
-    v = np.asarray(want[6]).astype(bool)
-    np.testing.assert_array_equal(got[6].numpy().astype(bool), v)
-    assert v.any() and not v.all()
-    for g, w in zip(got[:6], want[:6]):
-        np.testing.assert_array_equal(as_u32(g)[v], np.asarray(w)[v])
+    """K8: valid lanes (invalid lanes are not zeroed on either side); at
+    k = 64 also rows of the reads' own 150 bases, off every run and tile
+    size of the card's kernel."""
+    for L in (256, 150) if k == 64 else (256,):
+        reads = make_reads(600 + k + L - 256, 8, L)
+        want = jww.pack_canonical_hash_wide(jnp.asarray(reads), k, seed=7,
+                                            block_rows=8, interpret=True)
+        got = tww.pack_canonical_hash_wide_plain(torch.from_numpy(reads), k,
+                                                 7)
+        v = np.asarray(want[6]).astype(bool)
+        np.testing.assert_array_equal(got[6].numpy().astype(bool), v)
+        assert v.any() and not v.all()
+        for g, w in zip(got[:6], want[:6]):
+            np.testing.assert_array_equal(as_u32(g)[v], np.asarray(w)[v])
 
 
 def test_hash_wrappers_take_the_plain_version_on_cpu():

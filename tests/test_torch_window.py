@@ -21,13 +21,16 @@ def as_u32(t: torch.Tensor) -> np.ndarray:
 
 @pytest.mark.parametrize("k", [1, 15, 16, 17, 31])
 def test_pack_canonical_keys_plain_matches_pallas(k):
-    """K2: every lane, invalid lanes exactly (0x80000000, 0)."""
-    reads = make_reads(300 + k, 8, 256)
-    want_hi, want_lo = jwin.pack_canonical_keys(
-        jnp.asarray(reads), k, block_rows=8, interpret=True)
-    hi, lo = twin.pack_canonical_keys_plain(torch.from_numpy(reads), k)
-    np.testing.assert_array_equal(as_u32(hi), np.asarray(want_hi))
-    np.testing.assert_array_equal(as_u32(lo), np.asarray(want_lo))
+    """K2: every lane, invalid lanes exactly (0x80000000, 0); rows of 256
+    bases, of the reads' own 150 (off every run and tile size of the card's
+    kernel) and of k (one window a row)."""
+    for L in (256, 150, k):
+        reads = make_reads(300 + k + L, 8, L)
+        want_hi, want_lo = jwin.pack_canonical_keys(
+            jnp.asarray(reads), k, block_rows=8, interpret=True)
+        hi, lo = twin.pack_canonical_keys_plain(torch.from_numpy(reads), k)
+        np.testing.assert_array_equal(as_u32(hi), np.asarray(want_hi))
+        np.testing.assert_array_equal(as_u32(lo), np.asarray(want_lo))
 
 
 @pytest.mark.parametrize("k,L", [(7, 128), (16, 128), (17, 256), (31, 256)])
