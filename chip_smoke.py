@@ -8,10 +8,11 @@ Imports no JAX.  Phases, one line of output each (any failure raises, so
 the exit code is non-zero):
 
   1. device: the card's name and power limit; build the kernels.
-  2. kernels: the hash emitters K5 and K8 driven once as bench.py's step
-     (their launch counts), then each CUDA kernel against its plain
-     PyTorch version on the card at main-path shapes, bit for bit (K1 also
-     at [1001, 288], K2 and K7 at [1001, 150], K8 at [1001, 150] and
+  2. kernels: the hash emitters K5 and K8 driven once as bench.py's step,
+     and the stage variants (K2 at stage "pack", K9 at stage "hash") once
+     as bench_configs.py's ablation steps (their launch counts), then each CUDA kernel and variant against its plain PyTorch
+     version on the card at main-path shapes, bit for bit (K1 also at
+     [1001, 288], K2 and K7 at [1001, 150], K5 and K8 at [1001, 150] and
      [7, 257], K4 at 1,000,003 lanes on aligned planes and on views off 16
      bytes, keep bytes 1-255); median times of both.
   3. end to end, k=31: `count` on a seeded E. coli-scale read set
@@ -67,10 +68,11 @@ the exit code is non-zero):
  12. one K11 call on phase 8's 2^20 keys: whether the host waits for the
      card in it, the device operations it queues and the key bytes it
      moves; then the device time of each of its kernels at every phase-8
-     size, and of one K1, K2 (k=31) and K7 (k=63) at [4096, 256], K8
-     (k=63) at [2048, 1024], K10 (seg 64), K4 (2^25: its memset and its
-     one kernel) and K3 with idx (2^24 + 2^24) call at their timed shapes
-     (torch.profiler, last so that it cannot skew the walls above).
+     size, and of one K1, K2 (k=31) and K7 (k=63) at [4096, 256], K5
+     (k=31) and K8 (k=63) at [2048, 1024], the stage variants, K10 (seg
+     64), K4 (2^25: its memset and its one kernel) and K3 with idx
+     (2^24 + 2^24) call at their timed shapes (torch.profiler, last so
+     that it cannot skew the walls above).
 
 The last three lines: `nvidia-smi` name and power limit, a JSON object
 of the kernels' launches, errors and times, and
@@ -133,6 +135,12 @@ KERNEL_INFO = {
                                 "kmers_tpu/kernels/count_tile.py:262"),
     "radix_sort_u64": ("kmers_tpu_torch/kernels/csrc/sort.cu",
                        "kmers_tpu/kernels/sort.py:184"),
+    "pack_canonical_keys[pack]": (
+        "kmers_tpu_torch/kernels/csrc/window.cu",
+        "kmers_tpu/kernels/window.py:391 (stage=\"pack\")"),
+    "minimizer_kernel[hash]": (
+        "kmers_tpu_torch/kernels/csrc/minimizer.cu",
+        "kmers_tpu/kernels/minimizer.py:278 (stage=\"hash\")"),
 }
 # the sharded runs of phase 7: (partition, shards, route_capacity); the
 # minimizer partition's budget counts super-k-mers, ~12 per 150 bp read
@@ -340,6 +348,7 @@ def phase_kernels(stats: dict, seed: int) -> None:
 
     kernels_hash(stats, rs, seed)
     kernels_wide(stats, rs, g, seed)
+    kernels_stages(stats, reads, seed)
 
     for name, r in res.items():
         if r["max_abs_err"]:
@@ -409,8 +418,8 @@ def kernels_hash(stats: dict, rs, seed: int) -> None:
     once as the benchmark step (the launch counts reset just before and
     read just after), then held against their plain versions (K5 at
     k in {1, 16, 17, 31, 32}, K8 at k in {33, 48, 63, 64}, two seeds, every
-    lane; K8 also at [1001, 150] and [7, 257], k in {33, 63, 64}) and timed
-    at k=31 / k=63."""
+    lane; both also at [1001, 150] and [7, 257], K5 at the same k, K8 at
+    k in {33, 63, 64}) and timed at k=31 / k=63."""
     import numpy as np
     import torch
 
@@ -440,18 +449,21 @@ def kernels_hash(stats: dict, rs, seed: int) -> None:
             if int(torch.unique(h[valid]).numel()) < 1000:
                 raise AssertionError(f"{name}: degenerate hash plane")
     seeds = (0, (1 << 40) + 3)
+    # K5 and K8 also at rows off every run and tile size (reads of their
+    # own seed: the later kernels' inputs stay put)
+    rs_odd = np.random.RandomState(seed + 4)
+    odd = [torch.from_numpy(seeded_reads(rs_odd, *SIZES[name])).to(DEVICE)
+           for name in ("ascii_odd", "hash_tiny")]
     res["pack_canonical_hash"] = dict(
-        max_abs_err=max(max_abs_err(kwin.pack_canonical_hash(reads, k, s),
-                                    kwin.pack_canonical_hash_plain(reads, k, s))
+        max_abs_err=max(max_abs_err(kwin.pack_canonical_hash(r, k, s),
+                                    kwin.pack_canonical_hash_plain(r, k, s))
+                        for r in [reads] + odd
                         for k in (1, 16, 17, 31, 32) for s in seeds),
         ms=time_ms(lambda: kwin.pack_canonical_hash(reads, 31)),
         plain_ms=time_ms(lambda: kwin.pack_canonical_hash_plain(reads, 31)),
         bound_ms=bound_ms(nbytes(reads, *step5)), library_ms=None)
-    # K8 also at rows off every run and tile size (reads of their own
-    # seed: the later kernels' inputs stay put)
-    rs_odd = np.random.RandomState(seed + 4)
-    odd = [torch.from_numpy(seeded_reads(rs_odd, *SIZES[name])).to(DEVICE)
-           for name in ("ascii_odd", "hash_tiny")]
+    stats["profiled"]["pack_canonical_hash [2048, 1024] k=31"] = (
+        lambda: kwin.pack_canonical_hash(reads, 31))
     cases = ([(reads, k) for k in (33, 48, 63, 64)]
              + [(r, k) for r in odd for k in (33, 63, 64)])
     res["pack_canonical_hash_wide"] = dict(
@@ -465,6 +477,72 @@ def kernels_hash(stats: dict, rs, seed: int) -> None:
         bound_ms=bound_ms(nbytes(reads, *step8)), library_ms=None)
     stats["profiled"]["pack_canonical_hash_wide [2048, 1024] k=63"] = (
         lambda: kww.pack_canonical_hash_wide(reads, 63))
+
+
+def kernels_stages(stats: dict, reads, seed: int) -> None:
+    """The stage variants of bench_configs.py's roofline ablation, at its
+    shape [2048, 1024], k=31 (reads of their own seed): K2 at stage "pack"
+    and K9 at stage "hash", w=11, each driven once as an ablation step
+    (the launch counts reset just before and read just after: K9 under its
+    mix64 default), then held against its plain version on every lane (K2
+    at k in {1, 16, 17, 31}, also on the count batch [4096, 256]; K9 for
+    each order) and timed there (K9 for each order; its JSON entry under
+    mix64)."""
+    import numpy as np
+    import torch
+
+    from kmers_tpu_torch import kernels
+    from kmers_tpu_torch.kernels import minimizer as kmin
+    from kmers_tpu_torch.kernels import window as kwin
+
+    res = stats["kernels"]
+    areads = torch.from_numpy(seeded_reads(np.random.RandomState(seed + 5),
+                                           *SIZES["hash"])).to(DEVICE)
+    k2_pack = lambda r, k: kwin.pack_canonical_keys(r, k, "pack")
+    k9_hash = lambda order: kmin.minimizer_kernel(areads, 31, 11, 0, order,
+                                                 "hash")
+    sync()
+    kernels.reset_launch_counts()
+    steps = {"pack_canonical_keys[pack]": k2_pack(areads, 31),
+             "minimizer_kernel[hash]": k9_hash("mix64")}
+    sync()
+    launched = kernels.launch_counts()
+    for name in steps:
+        stats["launches"][name] = launched[name]
+        if launched[name] != 1:
+            raise AssertionError(f"{name}: {launched[name]} launches")
+    res["pack_canonical_keys[pack]"] = dict(
+        max_abs_err=max(max_abs_err(
+            k2_pack(r, k), kwin.pack_canonical_keys_plain(r, k, "pack"))
+            for r in (areads, reads) for k in (1, 16, 17, 31)),
+        ms=time_ms(lambda: k2_pack(areads, 31)),
+        plain_ms=time_ms(
+            lambda: kwin.pack_canonical_keys_plain(areads, 31, "pack")),
+        bound_ms=bound_ms(nbytes(areads,
+                                 *steps["pack_canonical_keys[pack]"])),
+        library_ms=None)
+    plain_hash = lambda order: kmin.minimizer_kernel_plain(
+        areads, 31, 11, 0, order, "hash")
+    times = {order: (time_ms(lambda: k9_hash(order)),
+                     time_ms(lambda: plain_hash(order)))
+             for order in kmin.ORDERS}
+    res["minimizer_kernel[hash]"] = dict(
+        max_abs_err=max(max_abs_err(k9_hash(order), plain_hash(order))
+                        for order in kmin.ORDERS),
+        ms=times["mix64"][0], plain_ms=times["mix64"][1],
+        bound_ms=bound_ms(nbytes(areads, *steps["minimizer_kernel[hash]"])),
+        library_ms=None)
+    say(f"  stage variants: minimizer_kernel[hash] {list(areads.shape)} "
+        f"k=31 w=11 "
+        + "; ".join(f"{order} {t:.5f} ms (plain {p:.3f})"
+                    for order, (t, p) in times.items())
+        + f"; bound {res['minimizer_kernel[hash]']['bound_ms']:.5f}")
+    for label, fn in (
+            ("pack_canonical_keys[pack] [2048, 1024]",
+             lambda: k2_pack(areads, 31)),
+            ("minimizer_kernel[hash] [2048, 1024] mix64",
+             lambda: k9_hash("mix64"))):
+        stats["profiled"][label] = fn
 
 
 def kernels_wide(stats: dict, rs, g, seed: int) -> None:

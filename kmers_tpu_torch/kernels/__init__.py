@@ -17,7 +17,9 @@ KERNELS = ("pack_canonical_keys_packed", "pack_canonical_keys",
            "pack_canonical_hash",
            "merge_sorted_wide", "pack_canonical_keys_wide",
            "pack_canonical_hash_wide", "minimizer_kernel",
-           "segment_count_keys", "segment_count_keys_wide", "radix_sort_u64")
+           "segment_count_keys", "segment_count_keys_wide", "radix_sort_u64",
+           # the stage variants, each counted under its own name
+           "pack_canonical_keys[pack]", "minimizer_kernel[hash]")
 
 _launches = dict.fromkeys(KERNELS, 0)
 
@@ -48,6 +50,18 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     if device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {device}")
+
+
+def check_stage(stage: str, stages: tuple, name: str) -> None:
+    if stage not in stages:
+        raise ValueError(f"{name}: stage must be one of {stages}, got "
+                         f"{stage!r}")
+
+
+def variant(name: str, stage: str, default: str) -> str:
+    """The launch-count name of a kernel's stage: the kernel's own at its
+    default stage, else "name[stage]"."""
+    return name if stage == default else f"{name}[{stage}]"
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,

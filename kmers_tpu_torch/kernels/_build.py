@@ -43,11 +43,11 @@ _ULL = ctypes.c_ulonglong
 # name -> (argtypes, restype)
 _SIGNATURES = {
     "kt_pack_keys_packed": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
-    "kt_pack_keys_ascii": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    "kt_pack_keys_ascii": ([_P] * 3 + [_I] * 4 + [_P], _I),
     "kt_pack_hash_ascii": ([_P] * 6 + [_I, _I, _I, _ULL, _P], _I),
     "kt_pack_keys_wide": ([_P] * 5 + [_I, _I, _I, _P], _I),
     "kt_pack_hash_wide": ([_P] * 8 + [_I, _I, _I, _ULL, _P], _I),
-    "kt_minimizer": ([_P] * 5 + [_I] * 4 + [_ULL, _I, _P], _I),
+    "kt_minimizer": ([_P] * 5 + [_I] * 4 + [_ULL, _I, _I, _P], _I),
     "kt_merge_sorted": ([_P, _P, _P, _LL, _P, _P, _LL, _P, _P, _P, _P, _P],
                         _I),
     "kt_merge_sorted_idx": ([_P, _P, _P, _LL, _P, _P, _LL] + [_P] * 6, _I),

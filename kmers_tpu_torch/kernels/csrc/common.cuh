@@ -125,21 +125,6 @@ __device__ __forceinline__ void kt_store_tile(const u32 (*planes)[TILE],
   }
 }
 
-// Stage one row segment of a [B, L] byte batch plus its (k-1)-byte halo
-// in shared memory: seg[i] = byte p0 + i of row `row`, `fill` past L.
-// Ends with __syncthreads().
-__device__ __forceinline__ void kt_stage_segment(const uint8_t* reads,
-                                                 uint8_t* seg, long long row,
-                                                 int p0, int n, int L,
-                                                 uint8_t fill) {
-  const uint8_t* rd = reads + row * L;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int p = p0 + i;
-    seg[i] = p < L ? rd[p] : fill;
-  }
-  __syncthreads();
-}
-
 // The mixer hash of kmers_tpu/core/u64.py (mix_hash): 32-bit 'lowbias32'
 // rounds, every multiply kept to its low 32 bits.
 __device__ __forceinline__ u32 kt_mix32(u32 x) {

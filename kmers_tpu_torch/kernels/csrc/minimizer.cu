@@ -32,6 +32,14 @@
 // memory over all positions, then each lane takes the smaller of two
 // overlapping entries (min is idempotent).  At k=31, w=11 that is four
 // steps and two lookups against 21 dependent compares.
+//
+// Stage "hash" (the roofline ablation's arm of kmers_tpu/kernels/
+// minimizer.py, which isolates the scan's cost) stops before the scan: a
+// template flag, so its instances stage the segment as above and then
+// emit for lane p the forward w-mer word that starts at p, int32(lo) ^
+// int32(hi) of its order (mix16 as mix32 >> 16, the unpacked form JAX
+// takes at that stage) and the k-window's validity, zero on invalid lanes
+// as in stage "full", whose instances are unchanged.
 
 #include "common.cuh"
 
@@ -100,8 +108,9 @@ __device__ __forceinline__ u64 kt_bits64(const u32* words, int bit) {
 
 // Block: n_seg = MIN_LANES + k - 1 threads rounded up to a warp, thread i
 // on byte i of the segment.  Shared memory: two arrays of n_w =
-// MIN_LANES + k - w candidates (the sparse table's ping-pong levels).
-template <int ORDER>
+// MIN_LANES + k - w candidates (the sparse table's ping-pong levels); none
+// at stage "hash" (HASH).
+template <int ORDER, bool HASH>
 __global__ void __launch_bounds__(MIN_CHUNKS * 32)
 kt_minimizer_kernel(const uint8_t* __restrict__ reads,
                     u32* __restrict__ word_hi, u32* __restrict__ word_lo,
@@ -141,6 +150,20 @@ kt_minimizer_kernel(const uint8_t* __restrict__ reads,
   __syncthreads();
 
   const u64 wmask = w == 32 ? ~0ull : (1ull << (2 * w)) - 1;
+  if (HASH) {
+    const int p = p0 + tid;
+    if (tid >= MIN_LANES || p >= L) return;
+    const u64 kmask = k == 64 ? ~0ull : (1ull << k) - 1;
+    const bool valid = p <= L - k && (kt_bits64(bad, tid) & kmask) == 0;
+    const u64 wm = kt_bits64(codes, 2 * tid) & wmask;
+    const u64 o = kt_wmer_order<ORDER>(wm, w, seed);
+    const long long lane_out = row * L + p;
+    word_hi[lane_out] = valid ? (u32)(wm >> 32) : 0u;
+    word_lo[lane_out] = valid ? (u32)wm : 0u;
+    pos_out[lane_out] = valid ? (int)((u32)o ^ (u32)(o >> 32)) : 0;
+    valid_out[lane_out] = valid;
+    return;
+  }
   if (tid < n_w)
     cur[tid] = Cand::make(
         kt_wmer_order<ORDER>(kt_bits64(codes, 2 * tid) & wmask, w, seed),
@@ -178,37 +201,42 @@ kt_minimizer_kernel(const uint8_t* __restrict__ reads,
 template <int ORDER>
 static int kt_minimizer_launch(const void* reads, void* word_hi,
                                void* word_lo, void* pos, void* valid, int B,
-                               int L, int k, int w, u64 seed,
+                               int L, int k, int w, u64 seed, bool hash,
                                cudaStream_t stream) {
   const int segs = (L + MIN_LANES - 1) / MIN_LANES;
   const long long blocks = (long long)B * segs;
   const int threads = (MIN_LANES + k - 1 + 31) / 32 * 32;
-  const size_t smem = 2 * (size_t)(MIN_LANES + k - w) * sizeof(MinCand<ORDER>);
-  kt_minimizer_kernel<ORDER><<<(unsigned)blocks, threads, smem, stream>>>(
+  const size_t smem =
+      hash ? 0 : 2 * (size_t)(MIN_LANES + k - w) * sizeof(MinCand<ORDER>);
+  auto kernel = hash ? kt_minimizer_kernel<ORDER, true>
+                     : kt_minimizer_kernel<ORDER, false>;
+  kernel<<<(unsigned)blocks, threads, smem, stream>>>(
       (const uint8_t*)reads, (u32*)word_hi, (u32*)word_lo, (int*)pos,
       (uint8_t*)valid, L, k, w, segs, seed);
   return (int)cudaGetLastError();
 }
 
-// order: 0 mix64, 1 mix32, 2 mix16, 3 lex (kernels/minimizer.py ORDERS).
+// order: 0 mix64, 1 mix32, 2 mix16, 3 lex (kernels/minimizer.py ORDERS);
+// hash: 0 stage "full", 1 stage "hash".
 KT_EXPORT int kt_minimizer(const void* reads, void* word_hi, void* word_lo,
                            void* pos, void* valid, int B, int L, int k, int w,
-                           unsigned long long seed, int order, void* stream) {
+                           unsigned long long seed, int order, int hash,
+                           void* stream) {
   if ((long long)B * L == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   switch (order) {
     case KT_MIX64:
       return kt_minimizer_launch<KT_MIX64>(reads, word_hi, word_lo, pos,
-                                           valid, B, L, k, w, seed, s);
+                                           valid, B, L, k, w, seed, hash, s);
     case KT_MIX32:
       return kt_minimizer_launch<KT_MIX32>(reads, word_hi, word_lo, pos,
-                                           valid, B, L, k, w, seed, s);
+                                           valid, B, L, k, w, seed, hash, s);
     case KT_MIX16:
       return kt_minimizer_launch<KT_MIX16>(reads, word_hi, word_lo, pos,
-                                           valid, B, L, k, w, seed, s);
+                                           valid, B, L, k, w, seed, hash, s);
     case KT_LEX:
       return kt_minimizer_launch<KT_LEX>(reads, word_hi, word_lo, pos, valid,
-                                         B, L, k, w, seed, s);
+                                         B, L, k, w, seed, hash, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -2,11 +2,12 @@
 //
 // Replaces three Pallas functions of kmers_tpu/kernels/window.py:
 //   K1 pack_canonical_keys_packed  (packed 2-bit words + validity bitmaps)
-//   K2 pack_canonical_keys         (ASCII bytes, stage "canon")
+//   K2 pack_canonical_keys         (ASCII bytes)
 //   K5 pack_canonical_hash         (ASCII bytes, canonical word + hash)
 // Output planes are [B, L], lane p = the window that starts at base p
 // ("p-order").  K1/K2 (k <= 31) emit two int32 planes: a valid lane holds
-// the canonical word (hi, lo), an invalid lane is exactly (0x80000000, 0)
+// the canonical word (hi, lo) (K2 at stage "pack": the forward word), an
+// invalid lane is exactly (0x80000000, 0)
 // -- the invalid flag folded into bit 31 of hi, structurally clear for
 // k <= 31.  K5 (k <= 32) emits canon hi/lo, hash hi/lo and a valid byte,
 // the four words zero on invalid lanes (window.py:177-186).
@@ -17,33 +18,45 @@
 // Mosaic and have no counterpart here: the unit table is a multiset, so
 // p-order serves it for any L % 32 == 0.
 //
-// K5 still runs one thread per output lane, until it takes up K2's rolled
-// body (kt_roll_canonical64): a block stages a row segment plus its
-// (k-1)-byte halo in shared memory once, and each thread rebuilds its
-// lane's whole window from k bytes (kt_window64, four compares a byte) and
-// runs the 5-step reverse-complement ladder, some 10k + 25 integer
-// operations a lane, so at k = 31 the integer rate, not device memory,
-// bounds it, and each of its stores is one 4-byte store a lane and plane.
+// K2 first ran one thread a lane, at 7 % of its 9-byte-a-lane memory
+// bound: a block staged a row segment plus its (k-1)-byte halo, and each
+// thread rebuilt its lane's whole window from k bytes (four compares a
+// byte) and ran the 5-step reverse-complement ladder, some 10k + 25
+// integer operations a lane.  Now it takes K7's rolled runs
+// (window_wide.cu) in 64 bits, in tiles of one warp.  A warp takes
+// K2_WARP_TILE consecutive lanes of the flattened [B, L] batch and stages
+// them with their halo as code bytes (kt_stage_codes: one 8-byte load a
+// lane, each byte decoded once).  Each lane builds the first window of its
+// run of K2_RUN lanes, from four 8-byte loads of those codes, and that
+// window's reverse complement once, then rolls the other lanes in a base
+// at a time (kt_roll_canonical64), some 12 operations a lane.  A lane is
+// valid where the bases counted since the last non-base byte reach k and
+// its base p in its row is at most L - k: a run may cross into the next
+// row, whose bytes then fill only lanes past L - k, which fold to the
+// invalid constant whatever they hold, so any L >= k works.  The two
+// planes are staged in the warp's shared memory and leave as 16-byte
+// stores of its contiguous lane range (kt_store_tile), each store on 512
+// contiguous bytes: K1's direct 16-byte stores from a row chunk would need
+// L % 4 == 0, and K2 takes any L.  No warp waits for another: block tiles
+// as K7's, staged and stored across the block between two barriers, were
+// slower, and runs of 16 lanes no faster (PERF.md, section 6).
 //
-// K2 ran that body too, at 7 % of its 9-byte-a-lane memory bound.  Now it
-// takes K7's rolled runs (window_wide.cu) in 64 bits, in tiles of one
-// warp.  A warp takes K2_WARP_TILE consecutive lanes of the flattened
-// [B, L] batch and stages them with their halo as code bytes
-// (kt_stage_codes: one 8-byte load a lane, each byte decoded once).  Each
-// lane builds the first window of its run of K2_RUN lanes, from four
-// 8-byte loads of those codes, and that window's reverse complement once,
-// then rolls the other lanes in a base at a time (kt_roll_canonical64),
-// some 12 operations a lane.  A lane is valid where the bases counted
-// since the last non-base byte reach k and its base p in its row is at
-// most L - k: a run may cross into the next row, whose bytes then fill
-// only lanes past L - k, which fold to the invalid constant whatever they
-// hold, so any L >= k works.  The two planes are staged in the warp's
-// shared memory and leave as 16-byte stores of its contiguous lane range
-// (kt_store_tile), each store on 512 contiguous bytes: K1's direct 16-byte
-// stores from a row chunk would need L % 4 == 0, and K2 takes any L.  No
-// warp waits for another: block tiles as K7's, staged and stored across
-// the block between two barriers, were slower, and runs of 16 lanes no
-// faster (PERF.md, section 6).
+// K5 ran that one-lane body too, at 14 % of its 18-byte-a-lane bound.
+// Now it takes K2's warp tiles and rolled runs, k <= 32, and hashes each
+// lane's canonical word (kt_mix64: 4 kt_mix32 rounds, 8 multiplies a lane,
+// which cannot be rolled); its four words are zero on invalid lanes, so a
+// run that crosses into the next row is sound as in K2 and any L >= k
+// works.  The four word planes leave through the warp's shared memory as
+// K2's two do (4 x 1 KB a warp, 35,072 B a block), the valid bytes as one
+// 8-byte store a thread.  At [2048, 1024], k = 31, it reaches about 70 %
+// of its memory bound by the profiler, 4.1x the one-lane body by the
+// events; block tiles as K8's (128 threads, 1024 lanes between two
+// barriers) were some 7 % slower (PERF.md, section 6).
+//
+// Stage "pack" of K2 (the roofline ablation's compute-light arm of
+// kmers_tpu/kernels/window.py) folds the forward word in place of the
+// canonical one: a template flag, so the reverse complement is never
+// built and the stage-"canon" instance is unchanged.
 //
 // K1 first ran one thread a lane too.  Each lane paid a 64-bit division
 // by L for its row, five bounds-checked loads, its window rebuilt from
@@ -62,30 +75,6 @@
 // bytes apart, wrote half sectors and were slower than the arithmetic.
 
 #include "common.cuh"
-
-#define WIN_THREADS 256                 // K5: lanes (threads) a block
-
-// Tail of K5 (window.py:_canon_hash_tail): reverse complement by
-// complement + swap ladder + shift, canonical = min(fw, rc) by (hi, lo).
-__device__ __forceinline__ u64 kt_canonical64(u64 fw, int k) {
-  const u64 rc = kt_revcomp64(fw, k);
-  return fw < rc ? fw : rc;
-}
-
-// The forward word of the window at seg[t..t+k-1] (k <= 32) and whether
-// all its bytes are bases.
-__device__ __forceinline__ u64 kt_window64(const uint8_t* seg, int t, int k,
-                                           bool* valid) {
-  u64 fw = 0;
-  bool ok_all = true;
-  for (int i = 0; i < k; ++i) {
-    bool ok;
-    fw |= (u64)kt_code(seg[t + i], &ok) << (2 * i);
-    ok_all &= ok;
-  }
-  *valid = ok_all;
-  return fw;
-}
 
 #define K1_RUN 4                     // lanes a thread in each half
 #define K1_CHUNK 256                 // lanes a warp: one row's chunk
@@ -178,14 +167,14 @@ __device__ __forceinline__ u32 kt_pack_flags8(u64 w) {
 #define K2_WARP_TILE (32 * K2_RUN)      // lanes a warp: its own tile
 #define K2_WARPS 8                      // warps a block
 
-// The rolled narrow body (K2; K5 may take it up), 1 <= k <= 32: the
-// canonical words of the RUN lanes whose windows start at seg[b], seg[b+1],
-// ... (code bytes, kt_stage_codes), the first at base p of its row, and
-// whether each is valid (its k bytes are bases and its base in its row is
-// at most L - k).  The first window and its reverse complement are built
-// once; each later lane rolls in one base (fw = fw >> 2 | c << 2(k-1),
-// rc = (rc << 2 | 3 - c) & mask).
-template <int RUN>
+// The rolled narrow body of K2 and K5, 1 <= k <= 32: the canonical words
+// (CANON false: the forward words, stage "pack") of the RUN lanes whose
+// windows start at seg[b], seg[b+1], ... (code bytes, kt_stage_codes), the
+// first at base p of its row, and whether each is valid (its k bytes are
+// bases and its base in its row is at most L - k).  The first window and
+// its reverse complement are built once; each later lane rolls in one base
+// (fw = fw >> 2 | c << 2(k-1), rc = (rc << 2 | 3 - c) & mask).
+template <int RUN, bool CANON = true>
 __device__ __forceinline__ void kt_roll_canonical64(const uint8_t* seg, int b,
                                                     int k, int p, int L,
                                                     u64 (&canon)[RUN],
@@ -216,7 +205,7 @@ __device__ __forceinline__ void kt_roll_canonical64(const uint8_t* seg, int b,
       run = e & KT_NOT_BASE ? 0 : run + 1;
       if (++p == L) p = 0;
     }
-    canon[i] = fw < rc ? fw : rc;
+    canon[i] = !CANON || fw < rc ? fw : rc;
     valid[i] = run >= k && p <= L - k;
   }
 }
@@ -225,7 +214,9 @@ __device__ __forceinline__ void kt_roll_canonical64(const uint8_t* seg, int b,
 // flattened [B, L] batch (n lanes) from (K2_WARPS x + w) K2_WARP_TILE,
 // lane t the lanes K2_RUN t .. K2_RUN t + K2_RUN - 1 of it; 1 <= k <= 31,
 // so bit 31 of hi is clear on a valid lane.  The warps share no data, so
-// each stages, rolls and stores without waiting for the others.
+// each stages, rolls and stores without waiting for the others.  CANON
+// false: stage "pack".
+template <bool CANON>
 __global__ void __launch_bounds__(32 * K2_WARPS)
 kt_pack_keys_ascii_kernel(const uint8_t* __restrict__ reads,
                           u32* __restrict__ out_hi, u32* __restrict__ out_lo,
@@ -242,8 +233,8 @@ kt_pack_keys_ascii_kernel(const uint8_t* __restrict__ reads,
   const int b = K2_RUN * lane;
   u64 canon[K2_RUN];
   bool valid[K2_RUN];
-  kt_roll_canonical64<K2_RUN>(segs[w], b, k, (int)((t0 + b) % L), L, canon,
-                              valid);
+  kt_roll_canonical64<K2_RUN, CANON>(segs[w], b, k, (int)((t0 + b) % L), L,
+                                     canon, valid);
   u32 out[2][K2_RUN];
 #pragma unroll
   for (int i = 0; i < K2_RUN; ++i) {
@@ -256,34 +247,55 @@ kt_pack_keys_ascii_kernel(const uint8_t* __restrict__ reads,
   kt_store_tile<32, K2_WARP_TILE, 2>(planes[w], dst, t0, n, lane);
 }
 
-// K5, k <= 32: block = one WIN_THREADS-lane segment of one row, its bytes
-// plus a (k-1)-byte halo staged in shared memory ('N' past L), one thread a
-// lane; the canonical word and its mixer hash.
-__global__ void kt_pack_hash_ascii_kernel(const uint8_t* __restrict__ reads,
-                                          u32* __restrict__ canon_hi,
-                                          u32* __restrict__ canon_lo,
-                                          u32* __restrict__ hash_hi,
-                                          u32* __restrict__ hash_lo,
-                                          uint8_t* __restrict__ valid_out,
-                                          int L, int k, int segs, u64 seed) {
-  extern __shared__ uint8_t seg[];
-  const long long row = blockIdx.x / segs;
-  const int p0 = (int)(blockIdx.x % segs) * WIN_THREADS;
-  kt_stage_segment(reads, seg, row, p0, WIN_THREADS + k - 1, L, 'N');
-  const int p = p0 + threadIdx.x;
-  if (p >= L) return;
+// K5, 1 <= k <= 32: the tiles of K2 (warp w of block x, K2_WARP_TILE
+// lanes from (K2_WARPS x + w) K2_WARP_TILE, lane t a run of K2_RUN lanes),
+// each lane's canonical word and its mixer hash, the four words zero on
+// invalid lanes, and a valid byte.
+__global__ void __launch_bounds__(32 * K2_WARPS)
+kt_pack_hash_ascii_kernel(const uint8_t* __restrict__ reads,
+                          u32* __restrict__ canon_hi,
+                          u32* __restrict__ canon_lo,
+                          u32* __restrict__ hash_hi,
+                          u32* __restrict__ hash_lo,
+                          uint8_t* __restrict__ valid_out, long long n, int L,
+                          int k, u64 seed) {
+  // code | NOT_BASE bytes, then the four word planes, of each warp's tile
+  __shared__ __align__(16) uint8_t segs[K2_WARPS][K2_WARP_TILE + 32];
+  __shared__ __align__(16) u32 planes[K2_WARPS][4][K2_WARP_TILE];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long t0 = ((long long)blockIdx.x * K2_WARPS + w) * K2_WARP_TILE;
+  if (t0 >= n) return;
+  kt_stage_codes<32, K2_RUN>(reads, segs[w], t0, n, k, lane);
+  __syncwarp();
 
-  bool bases;
-  const u64 fw = kt_window64(seg, threadIdx.x, k, &bases);
-  const bool valid = bases && p <= L - k;
-  const u64 c = kt_canonical64(fw, k);
-  const u64 h = kt_mix64((u32)(c >> 32), (u32)c, seed);
-  const long long lane = row * L + p;
-  canon_hi[lane] = valid ? (u32)(c >> 32) : 0u;
-  canon_lo[lane] = valid ? (u32)c : 0u;
-  hash_hi[lane] = valid ? (u32)(h >> 32) : 0u;
-  hash_lo[lane] = valid ? (u32)h : 0u;
-  valid_out[lane] = valid;
+  const int b = K2_RUN * lane;
+  u64 canon[K2_RUN];
+  bool valid[K2_RUN];
+  kt_roll_canonical64<K2_RUN>(segs[w], b, k, (int)((t0 + b) % L), L, canon,
+                              valid);
+  u32 out[4][K2_RUN];
+  u64 vbytes = 0;                   // lane i's valid byte in bits 8i..
+#pragma unroll
+  for (int i = 0; i < K2_RUN; ++i) {
+    const u64 h = kt_mix64((u32)(canon[i] >> 32), (u32)canon[i], seed);
+    out[0][i] = valid[i] ? (u32)(canon[i] >> 32) : 0u;
+    out[1][i] = valid[i] ? (u32)canon[i] : 0u;
+    out[2][i] = valid[i] ? (u32)(h >> 32) : 0u;
+    out[3][i] = valid[i] ? (u32)h : 0u;
+    vbytes |= (u64)valid[i] << (8 * i);
+  }
+  const long long f = t0 + b;
+  if (f + K2_RUN <= n) {
+    *reinterpret_cast<uint2*>(valid_out + f) =
+        make_uint2((u32)vbytes, (u32)(vbytes >> 32));
+  } else {
+    for (int i = 0; f + i < n; ++i)
+      valid_out[f + i] = (uint8_t)(vbytes >> (8 * i));
+  }
+  kt_put_run(planes[w], out, b);
+  __syncwarp();
+  u32* const dst[4] = {canon_hi, canon_lo, hash_hi, hash_lo};
+  kt_store_tile<32, K2_WARP_TILE, 4>(planes[w], dst, t0, n, lane);
 }
 
 KT_EXPORT int kt_pack_keys_packed(const void* words, const void* vbits,
@@ -300,15 +312,18 @@ KT_EXPORT int kt_pack_keys_packed(const void* words, const void* vbits,
   return (int)cudaGetLastError();
 }
 
+// pack: 0 stage "canon", 1 stage "pack".
 KT_EXPORT int kt_pack_keys_ascii(const void* reads, void* out_hi,
-                                 void* out_lo, int B, int L, int k,
+                                 void* out_lo, int B, int L, int k, int pack,
                                  void* stream) {
   const long long n = (long long)B * L;
   if (n == 0) return 0;
   const long long block_lanes = K2_WARPS * K2_WARP_TILE;
-  kt_pack_keys_ascii_kernel<<<(unsigned)((n + block_lanes - 1) / block_lanes),
-                              32 * K2_WARPS, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)reads, (u32*)out_hi, (u32*)out_lo, n, L, k);
+  auto kernel = pack ? kt_pack_keys_ascii_kernel<false>
+                     : kt_pack_keys_ascii_kernel<true>;
+  kernel<<<(unsigned)((n + block_lanes - 1) / block_lanes), 32 * K2_WARPS, 0,
+           (cudaStream_t)stream>>>((const uint8_t*)reads, (u32*)out_hi,
+                                   (u32*)out_lo, n, L, k);
   return (int)cudaGetLastError();
 }
 
@@ -317,14 +332,13 @@ KT_EXPORT int kt_pack_hash_ascii(const void* reads, void* canon_hi,
                                  void* hash_lo, void* valid, int B, int L,
                                  int k, unsigned long long seed,
                                  void* stream) {
-  if ((long long)B * L == 0) return 0;
-  const int segs = (L + WIN_THREADS - 1) / WIN_THREADS;
-  const long long blocks = (long long)B * segs;
-  const size_t smem = WIN_THREADS + k - 1;
-  kt_pack_hash_ascii_kernel<<<(unsigned)blocks, WIN_THREADS, smem,
-                              (cudaStream_t)stream>>>(
+  const long long n = (long long)B * L;
+  if (n == 0) return 0;
+  const long long block_lanes = K2_WARPS * K2_WARP_TILE;
+  kt_pack_hash_ascii_kernel<<<(unsigned)((n + block_lanes - 1) / block_lanes),
+                              32 * K2_WARPS, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)reads, (u32*)canon_hi, (u32*)canon_lo, (u32*)hash_hi,
-      (u32*)hash_lo, (uint8_t*)valid, L, k, segs, (u64)seed);
+      (u32*)hash_lo, (uint8_t*)valid, n, L, k, (u64)seed);
   return (int)cudaGetLastError();
 }
 

@@ -251,6 +251,43 @@ def test_window_kernel_rolled_runs_match_plain(card, k):
                 assert (want[0] != -(1 << 31)).any()
 
 
+@pytest.mark.parametrize("k", [1, 2, 15, 16, 17, 31, 32])
+def test_hash_kernel_rolled_runs_match_plain(card, k):
+    """K5 on every lane at rows of k to 257 bases, two seeds (one above
+    2^32): its runs of 8 lanes cross p = L - k and the row's end, a row
+    may be shorter than a warp's 256 lanes or than the run, and the 7-row
+    batches also start off 8 bytes."""
+    for L in sorted({k, 31, 64, 100, 150, 257} - set(range(k))):
+        for B in (1, 7, 300):
+            r = run_reads(card, B, L, B * L + k)
+            if B == 7:
+                r = off_16_bytes(r)
+            for seed in (0, (1 << 40) + 3):
+                want = twin.pack_canonical_hash_plain(r, k, seed)
+                assert equal_all(twin.pack_canonical_hash(r, k, seed), want)
+                if B == 300:         # valid lanes are among those checked
+                    assert want[4].any()
+
+
+@pytest.mark.parametrize("B,L", [(64, 320), (1, 100), (3, 257), (0, 64)])
+def test_stage_variants_match_plain(card, B, L):
+    """K2 at stage "pack" and K9 at stage "hash", every order, on every
+    lane; rows off the block and tile sizes, one row and no rows."""
+    from kmers_tpu_torch.kernels import minimizer as tkmin
+
+    r = card_reads(card, B, L, B * L + 10)
+    for k in (1, 15, 16, 17, 31):
+        assert equal_all(twin.pack_canonical_keys(r, k, "pack"),
+                         twin.pack_canonical_keys_plain(r, k, "pack"))
+    for order in tkmin.ORDERS:
+        for k, w in ((31, 11), (21, 17), (5, 3), (64, 32), (64, 1)):
+            for seed in (0, (1 << 40) + 3):
+                assert equal_all(
+                    tkmin.minimizer_kernel(r, k, w, seed, order, "hash"),
+                    tkmin.minimizer_kernel_plain(r, k, w, seed, order,
+                                                 "hash"))
+
+
 @pytest.mark.parametrize("k", [33, 47, 48, 62, 63, 64])
 def test_wide_window_kernel_rolled_runs_match_plain(card, k):
     """K7 (k <= 63) and K8 (two seeds, one above 2^32) on every lane at

@@ -91,6 +91,22 @@ def test_pack_canonical_hash_plain_matches_pallas(k, seed):
     np.testing.assert_array_equal(got[4].numpy(), np.asarray(want[4]))
 
 
+@pytest.mark.parametrize("k", [1, 16, 17, 31, 32])
+def test_pack_canonical_hash_plain_matches_pallas_on_short_rows(k):
+    """K5 at rows of the reads' own 150 bases (off every run and tile size
+    of the card's kernel) and of k (one window a row): every lane."""
+    for L in (150, k):
+        reads = make_reads(900 + k + L, 8, L)
+        want = jwin.pack_canonical_hash(jnp.asarray(reads), k,
+                                        seed=(1 << 40) + 3, block_rows=8,
+                                        interpret=True)
+        got = twin.pack_canonical_hash_plain(torch.from_numpy(reads), k,
+                                             (1 << 40) + 3)
+        for g, w in zip(got[:4], want[:4]):
+            np.testing.assert_array_equal(as_u32(g), np.asarray(w))
+        np.testing.assert_array_equal(got[4].numpy(), np.asarray(want[4]))
+
+
 @pytest.mark.parametrize("k", [33, 47, 48, 49, 63, 64])
 def test_pack_canonical_hash_wide_plain_matches_pallas(k):
     """K8: valid lanes (invalid lanes are not zeroed on either side); at

@@ -142,6 +142,31 @@ def test_minimizer_kernel_plain_matches_pallas(order, k, w):
         assert (g.numpy()[~v] == 0).all()
 
 
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("k,w", [(31, 11), (21, 17)])
+def test_minimizer_kernel_hash_stage_plain_matches_pallas(order, k, w):
+    """K9 at stage "hash" (no window scan): the forward w-mer word at p,
+    int32(lo) ^ int32(hi) of its order and the k-window's validity, on
+    valid lanes (JAX leaves the unmasked values on invalid lanes; the port
+    zeroes them)."""
+    reads = reads_for(k, w)
+    opts = dict(use_lex=True) if order == "lex" else dict(order=order)
+    want = jkmin.minimizer_kernel(jnp.asarray(reads), k, w, seed=SEED,
+                                  block_rows=8, interpret=True, stage="hash",
+                                  **opts)
+    got = tkmin.minimizer_kernel_plain(torch.from_numpy(reads), k, w, SEED,
+                                       order, "hash")
+    assert [g.dtype for g in got] == [torch.int32] * 3 + [torch.uint8]
+    v = np.asarray(want[3]).astype(bool)
+    assert v.any() and not v.all()
+    np.testing.assert_array_equal(got[3].numpy().astype(bool), v)
+    for g, x in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(as_u32(g)[v], np.asarray(x)[v])
+    np.testing.assert_array_equal(got[2].numpy()[v], np.asarray(want[2])[v])
+    for g in got:
+        assert (g.numpy()[~v] == 0).all()
+
+
 def test_minimizer_kernel_wrapper_takes_the_plain_version_on_cpu():
     r = torch.from_numpy(reads_for(21, 7, L=70))
     kernels.reset_launch_counts()
@@ -149,7 +174,11 @@ def test_minimizer_kernel_wrapper_takes_the_plain_version_on_cpu():
         got = tkmin.minimizer_kernel(r, 21, 7, 5, order)
         want = tkmin.minimizer_kernel_plain(r, 21, 7, 5, order)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+        got = tkmin.minimizer_kernel(r, 21, 7, 5, order, "hash")
+        want = tkmin.minimizer_kernel_plain(r, 21, 7, 5, order, "hash")
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert kernels.launch_counts()["minimizer_kernel"] == 0
+    assert kernels.launch_counts()["minimizer_kernel[hash]"] == 0
 
 
 def test_minimizer_kernel_checks_its_inputs():
@@ -166,6 +195,15 @@ def test_minimizer_kernel_checks_its_inputs():
         tkmin.minimizer_kernel(r.to(torch.int32), 21, 7)
     with pytest.raises(ValueError):
         tmin.minimizer_stream(r, 5, 7, thash.mix_hash_fn())
+
+
+def test_minimizer_kernel_rejects_an_unknown_stage():
+    r = torch.from_numpy(reads_for(21, 7, L=40))
+    for call in (lambda: tkmin.minimizer_kernel(r, 21, 7, stage="pack"),
+                 lambda: tkmin.minimizer_kernel_plain(r, 21, 7, 0, "mix64",
+                                                      "canon")):
+        with pytest.raises(ValueError, match="full.*hash"):
+            call()
 
 
 def test_minimizer_stream_matches_the_oracle():

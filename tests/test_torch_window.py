@@ -50,6 +50,20 @@ def test_pack_canonical_keys_packed_plain_matches_pallas(k, L):
     np.testing.assert_array_equal(as_u32(lo)[:, p_of_q], np.asarray(want_lo))
 
 
+@pytest.mark.parametrize("k", [1, 16, 17, 31])
+def test_pack_stage_plain_matches_pallas(k):
+    """K2 at stage "pack" (the forward word folded in place of the
+    canonical one): every lane, at rows of 256 bases, of 150 and of k."""
+    for L in (256, 150, k):
+        reads = make_reads(700 + k + L, 8, L)
+        want_hi, want_lo = jwin.pack_canonical_keys(
+            jnp.asarray(reads), k, stage="pack", block_rows=8, interpret=True)
+        hi, lo = twin.pack_canonical_keys_plain(torch.from_numpy(reads), k,
+                                                "pack")
+        np.testing.assert_array_equal(as_u32(hi), np.asarray(want_hi))
+        np.testing.assert_array_equal(as_u32(lo), np.asarray(want_lo))
+
+
 def test_wrappers_take_the_plain_version_on_cpu():
     reads = make_reads(9, 4, 64)
     words, vbits = pack_batch_np(reads)
@@ -62,6 +76,9 @@ def test_wrappers_take_the_plain_version_on_cpu():
                       (twin.pack_canonical_keys(r, 21),
                        twin.pack_canonical_keys_plain(r, 21))):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+    got = twin.pack_canonical_keys(r, 21, "pack")
+    want = twin.pack_canonical_keys_plain(r, 21, "pack")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
     # a CPU tensor runs no kernel, so nothing is counted
     assert set(kernels.launch_counts().values()) == {0}
     # the packed and ASCII keys are the same lanes
@@ -83,3 +100,13 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError):
         twin.pack_canonical_keys_packed(torch.zeros((2, 3), dtype=torch.int32),
                                         torch.zeros((2, 1), dtype=torch.int32), 5)
+
+
+def test_wrappers_reject_an_unknown_stage():
+    reads = torch.from_numpy(make_reads(2, 2, 64))
+    for call in (lambda: twin.pack_canonical_keys(reads, 5, "full"),
+                 lambda: twin.pack_canonical_keys_plain(reads, 5, "hash"),
+                 lambda: twin.pack_canonical_keys(reads, 5, "Pack"),
+                 lambda: twin.pack_canonical_keys_plain(reads, 5, "")):
+        with pytest.raises(ValueError, match="canon.*pack"):
+            call()
