@@ -53,6 +53,16 @@ the exit code is non-zero):
  10. `count` at k=32 and k=64 (run-length path) against torch.unique,
      and their smoke digests, eviction, stats and query.
  11. the compact sharded counter and minimizer bucketing on 4 shards.
+ 14. sharded counting past k = 31 and sequence parallelism, 4 shards on
+     the one card: ShardedStreamingCounter (hash) over the 1M-read set at
+     k=32, 63 and 64 must save the single-device table of phase 10 / 4
+     with zero overflow and 9 B (k=32) or 17 B a received lane of
+     route_bytes, the k=63 run launching K6 and K4;
+     make_sequence_parallel_counter over the 4,641,652 bp genome itself
+     (Ns at and beside the cuts) at k=31 and 63 must equal an
+     independent torch.unique count of the whole sequence with no key on
+     two shards, the k=31 run launching K11.  Walls, k-mers/s, peak
+     memory and route_bytes.
  13. the distributed lookup service (runs before phase 12, whose profiler
      would slow it), both answer arms of make_sharded_lookup (merge: K3
      with its source-index plane and K4; binary search): bench_configs.py
@@ -148,6 +158,17 @@ SHARDED_RUNS = (("minimizer", 1, 1 << 16), ("minimizer", 4, 1 << 13),
                 ("hash", 1, 1 << 20), ("hash", 4, 1 << 16))
 # phase 11's compact sharded counter: (shards, route_capacity)
 SHARDED_COMPACT = (4, 1 << 16)
+# phase 14: ShardedStreamingCounter (hash partition) past k = 31 on four
+# shards of the one card.  A sender's 1024 rows of a batch hold ~119
+# valid windows each (k = 32), ~30.5k lanes a destination (a standard
+# deviation of ~150), so 2^15 lanes leave no overflow at any of these k
+SHARDED_WIDE = dict(shards=4, route_capacity=1 << 15, ks=(32, 63, 64))
+# ... and make_sequence_parallel_counter over the seeded genome itself,
+# split over four shards, with Ns at these offsets from each cut; its
+# route capacity is an even share of a shard's windows a destination,
+# plus `margin`
+SEQ_PARALLEL = dict(shards=4, ks=(31, 63), n_offsets=(-2, 0, 5),
+                    margin=1.05)
 # phase 13's lookups: bench_configs.py --lookup's table and queries on one
 # shard (:576-596), and phase 3's table split over four shards of 2^22
 # slots with 2^20 queries, 2^17 lanes a sender and destination
@@ -629,7 +650,6 @@ def independent_count(fastq: str, k: int, batch: int, length: int):
     import numpy as np
     import torch
 
-    from kmers_tpu_torch.core import u64
     from kmers_tpu_torch.io import fastx
     from kmers_tpu_torch.ops import kmer
 
@@ -639,19 +659,39 @@ def independent_count(fastq: str, k: int, batch: int, length: int):
         w = torch.from_numpy(words.view(np.int32)).to(DEVICE)
         v = torch.from_numpy(vbits.view(np.int32)).to(DEVICE)
         if k <= 32:
-            win = kmer.kmer_windows_packed(w, v, k)
-            keys.append(u64.to_unsigned_order(
-                kmer.canonical_word(win.fw, win.rc)[win.valid]))
+            keys.append(valid_keys(kmer.kmer_windows_packed(w, v, k)))
         else:
-            win = kmer.kmer_windows_packed_wide(w, v, k)
-            hi, lo = kmer.canonical_word_wide(win.fw, win.rc)
-            keys.append(u64.to_unsigned_order(
-                torch.stack([hi[win.valid], lo[win.valid]], 1)))
-    if k <= 32:
-        words, counts = torch.unique(torch.cat(keys), return_counts=True)
-        return u64.to_unsigned_order(words), counts
-    rows, counts = torch.unique(torch.cat(keys), dim=0, return_counts=True)
-    return u64.to_unsigned_order(rows), counts
+            keys.append(valid_keys(kmer.kmer_windows_packed_wide(w, v, k)))
+    return unique_count(keys)
+
+
+def valid_keys(win):
+    """The valid canonical keys of plain windows, each word's sign bit
+    flipped: int64 words, or [n, 2] rows of (hi, lo) for 128-bit keys."""
+    import torch
+
+    from kmers_tpu_torch.core import u64
+    from kmers_tpu_torch.ops import kmer
+
+    if isinstance(win.fw, tuple):
+        hi, lo = kmer.canonical_word_wide(win.fw, win.rc)
+        return u64.to_unsigned_order(
+            torch.stack([hi[win.valid], lo[win.valid]], 1))
+    return u64.to_unsigned_order(kmer.canonical_word(win.fw, win.rc)[
+        win.valid])
+
+
+def unique_count(keys: list):
+    """torch.unique over valid_keys' chunks: (keys sorted as unsigned, in
+    table_keys' form, counts)."""
+    import torch
+
+    from kmers_tpu_torch.core import u64
+
+    cat = torch.cat(keys)
+    words, counts = torch.unique(cat, dim=0 if cat.dim() == 2 else None,
+                                 return_counts=True)
+    return u64.to_unsigned_order(words), counts
 
 
 def table_keys(table):
@@ -1332,6 +1372,171 @@ def phase_sharded_compact(stats: dict, workdir: str) -> None:
         f"{ {m: c for m, c in m_launches.items() if c} }")
 
 
+def phase_sharded_wide(stats: dict, workdir: str, seed: int) -> None:
+    """Phase 14, four shards on the one card.  ShardedStreamingCounter
+    (hash partition) over the 1M-read set at k = 32, 63 and 64 must save
+    phase 10's / phase 4's single-device table (npz_digest) with no
+    routing overflow and route_bytes of 9 B (k = 32) or 17 B (128-bit
+    keys) a received lane; the k = 63 run, whose pending shard tables
+    are UnitTableWide, must launch K6 and K4.  Then
+    make_sequence_parallel_counter over the 4,641,652 bp genome the reads
+    come from, Ns at and beside the three cuts, at k = 31 and 63: no
+    overflow, the union of the shard tables (no key on two shards) equal
+    to an independent torch.unique count of the whole sequence's plain
+    windows, and K11 launched at k = 31 (each shard's compact table),
+    where it is held against its plain version at a shard's keys."""
+    import torch
+
+    from kmers_tpu_torch import kernels
+    from kmers_tpu_torch.core import u64
+    from kmers_tpu_torch.io import simulate
+    from kmers_tpu_torch.kernels import sort as ksort
+    from kmers_tpu_torch.ops import kmer
+    from kmers_tpu_torch.parallel import pipeline
+    from kmers_tpu_torch.parallel.mesh import make_mesh
+    from kmers_tpu_torch.parallel.stream import (ShardedStreamingCounter,
+                                                 auto_merge_every,
+                                                 count_fastx, npz_digest,
+                                                 pending_table_lanes)
+
+    fastq = os.path.join(workdir, "ecoli_1m.fastq")
+    capacity, batch, length = 1 << 24, 4096, 256
+    shards, route_capacity = (SHARDED_WIDE["shards"],
+                              SHARDED_WIDE["route_capacity"])
+    mesh = make_mesh(devices=[DEVICE] * shards)
+    merge_every = auto_merge_every(capacity, pending_table_lanes(
+        batch, length, devices=shards, route_capacity=route_capacity))
+    for k in SHARDED_WIDE["ks"]:
+        name = f"sharded_hash_d{shards}_k{k}"
+        out = os.path.join(workdir, f"ecoli_1m_{name}.npz")
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        sc = ShardedStreamingCounter(k, capacity, merge_every=merge_every,
+                                     mesh=mesh, route_capacity=route_capacity)
+        count_fastx(fastq, k, capacity, device=DEVICE, batch=batch,
+                    length=length, counter=sc)
+        sc.save(out)
+        sync()
+        wall = time.time() - t0
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        lane_bytes = 17 if k > 32 else 9
+        lanes = sc.batches * shards * shards * route_capacity
+        if sc.route_overflow:
+            raise AssertionError(f"{name}: route_overflow {sc.route_overflow}")
+        if npz_digest(out) != npz_digest(
+                os.path.join(workdir, f"ecoli_1m_k{k}.npz")):
+            raise AssertionError(f"{name}: table differs from the "
+                                 "single-device count")
+        if sc.route_bytes != lanes * lane_bytes:
+            raise AssertionError(f"{name}: route_bytes {sc.route_bytes} != "
+                                 f"{lane_bytes} B x {lanes} received lanes")
+        needed = ("merge_sorted_wide", "compress_flagged") if k == 63 else ()
+        for kernel in needed:
+            if launches[kernel] == 0:
+                raise AssertionError(f"{name}: {kernel} was not launched")
+            stats["launches"][kernel] += launches[kernel]
+        stats[name] = dict(wall_s=wall, kmers=sc.kmers,
+                           kmers_per_s=sc.kmers / wall,
+                           route_bytes=sc.route_bytes,
+                           route_capacity=route_capacity,
+                           merge_every=merge_every, peak_bytes=peak,
+                           launches=launches)
+        say(f"phase 14 {name}: {sc.kmers} kmers in {wall:.3f}s = "
+            f"{sc.kmers / wall:.4g} kmers/s, route_capacity "
+            f"{route_capacity}, merge_every {merge_every}, route_bytes "
+            f"{sc.route_bytes} ({lane_bytes} B x {lanes} lanes), peak "
+            f"device memory {peak / 2**20:.1f} MiB, overflow 0, table == "
+            f"single-device; launches "
+            f"{ {n: c for n, c in launches.items() if c} }")
+
+    g = SIZES["genome"]
+    seq = simulate.genome(g, seed)
+    cut = g // shards
+    for c in range(cut, g, cut):
+        for off in SEQ_PARALLEL["n_offsets"]:
+            seq[c + off] = ord("N")
+    seq_t = torch.from_numpy(seq).to(DEVICE)
+    route_capacity = int(SEQ_PARALLEL["margin"] * cut / shards)
+    for k in SEQ_PARALLEL["ks"]:
+        name = f"sequence_parallel_d{shards}_k{k}"
+        step = pipeline.make_sequence_parallel_counter(
+            mesh, k, route_capacity=route_capacity)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        with caught_args(ksort, "radix_sort_u64") as caught:
+            res = step(seq_t)
+            sync()
+        wall = time.time() - t0
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        emitted = int(res.metrics["kmers_emitted"])
+        if int(res.metrics["route_overflow"]):
+            raise AssertionError(f"{name}: route_overflow "
+                                 f"{int(res.metrics['route_overflow'])}")
+        # the union of the shard tables, each key once
+        union = u64.to_unsigned_order(torch.cat(
+            [table_keys(t) for t in res.table]))
+        got, inverse = torch.unique(union, dim=0 if union.dim() == 2 else None,
+                                    return_inverse=True)
+        if got.shape[0] != union.shape[0]:
+            raise AssertionError(f"{name}: {union.shape[0] - got.shape[0]} "
+                                 "keys on two shards")
+        got_counts = torch.zeros(got.shape[0], dtype=torch.int64,
+                                 device=got.device).index_put_(
+            (inverse,), torch.cat([t.counts[:t.n_unique]
+                                   for t in res.table]).to(torch.int64))
+        windows = kmer.kmer_windows_wide if k > 32 else kmer.kmer_windows
+        want_keys, want_counts = unique_count(
+            [valid_keys(windows(seq_t[None, :], k))])
+        if not (torch.equal(u64.to_unsigned_order(got), want_keys)
+                and torch.equal(got_counts, want_counts)
+                and emitted == int(want_counts.sum())):
+            raise AssertionError(
+                f"{name}: shard tables differ from the independent count: "
+                f"{got.shape[0]} vs {want_keys.shape[0]} keys")
+        k11 = ""
+        if k <= 31:
+            if launches["radix_sort_u64"] == 0:
+                raise AssertionError(f"{name}: radix_sort_u64 not launched")
+            stats["launches"]["radix_sort_u64"] += launches["radix_sort_u64"]
+            # K11 against its plain version at a shard's keys, timed
+            hi, lo = caught[0]
+            err = max_abs_err(ksort.radix_sort_u64(hi, lo),
+                              ksort.radix_sort_u64_plain(hi, lo))
+            if err:
+                raise AssertionError(f"{name}: radix_sort_u64 differs from "
+                                     f"its plain version ({err})")
+            flipped = u64.to_unsigned_order(u64.join_planes(hi, lo))
+            t = (time_ms(lambda: ksort.radix_sort_u64(hi, lo)),
+                 time_ms(lambda: ksort.radix_sort_u64_plain(hi, lo)),
+                 time_ms(lambda: torch.sort(flipped)),
+                 bound_ms(2 * nbytes(hi, lo)))
+            stats["kernels"]["radix_sort_u64"]["sizes"][name] = t
+            k11 = (f"; radix_sort_u64 at a shard's {hi.shape[0]} keys "
+                   f"bit-exact vs plain, {t[0]:.4f} ms (plain {t[1]:.3f}, "
+                   f"torch.sort {t[2]:.4f}, bound {t[3]:.4f})")
+        lane_bytes = 17 if k > 32 else 9
+        route_bytes = shards * shards * route_capacity * lane_bytes
+        stats[name] = dict(wall_s=wall, kmers=emitted,
+                           kmers_per_s=emitted / wall,
+                           route_bytes=route_bytes,
+                           route_capacity=route_capacity, peak_bytes=peak,
+                           launches=launches)
+        say(f"phase 14 {name}: {g} bases, {shards} shards of {cut}, "
+            f"{emitted} kmers, {got.shape[0]} distinct in {wall:.3f}s = "
+            f"{emitted / wall:.4g} kmers/s, route_capacity {route_capacity}, "
+            f"route_bytes {route_bytes}, peak device memory "
+            f"{peak / 2**20:.1f} MiB, overflow 0, union of the shard tables "
+            f"== torch.unique count of the whole sequence, no key on two "
+            f"shards; launches { {n: c for n, c in launches.items() if c} }"
+            + k11)
+
+
 @contextlib.contextmanager
 def caught_args(module, name: str):
     """Record the positional arguments of the first call of module.name
@@ -1615,6 +1820,7 @@ def main(argv=None) -> int:
         phase_end_to_end(stats, args.seed, args.workdir, k, 10)
     phase_reference(stats, args.workdir, ks=(32, 64), phase=10)
     phase_sharded_compact(stats, args.workdir)
+    phase_sharded_wide(stats, args.workdir, args.seed)
     phase_lookup(stats, args.seed, args.workdir)
     phase_sort_call(sort_inputs)
     phase_profiled(stats)

@@ -8,11 +8,12 @@ Commands (the same as ``python -m kmers_tpu``):
 
 Every command takes --device (default cuda).  A cuda device without a
 card is an error, never a silent fall back to the CPU.  This port counts
-1 <= k <= 64 on one device (128-bit keys past k = 32; k = 32 and k = 64,
-which fill every key bit, through the run-length tables), and
-1 <= k <= 31 sharded over --devices N (N GPUs; N shards on the CPU with
---device cpu), hash- or minimizer-partitioned; --devices > 1 at k > 31
-exits 2 with an error.
+1 <= k <= 64 (128-bit keys past k = 32; k = 32 and k = 64, which fill
+every key bit, through the run-length tables), on one device or sharded
+over --devices N (N GPUs; N shards on the CPU with --device cpu),
+hash-partitioned at every k, minimizer-partitioned at k <= 31;
+--partition minimizer with --devices > 1 at k > 31 exits 2 with an
+error.
 """
 
 from __future__ import annotations
@@ -37,18 +38,20 @@ def _device(name: str):
 
 
 def _unsupported(args):
-    """The error for an option this port does not run yet (or a minimizer
-    width that does not fit k), or None."""
+    """The error for arguments the count refuses (k outside 1..64, the
+    sharded minimizer partition past k = 31, a minimizer width that does
+    not fit k), or None."""
     try:
         check_k(args.k)
     except ValueError as e:
         return str(e)
-    if args.devices > 1 and args.k > NARROW_MAX_K:
-        return (f"--devices > 1 at k={args.k}: the wide sharded pipeline "
-                "(k > 31) is not ported yet")
-    if (args.devices > 1 and args.partition == "minimizer"
-            and not 1 <= args.minimizer_w <= args.k):
-        return f"--minimizer-w {args.minimizer_w} must lie in 1..k={args.k}"
+    if args.devices > 1 and args.partition == "minimizer":
+        if args.k > NARROW_MAX_K:
+            return (f"--partition minimizer needs k <= {NARROW_MAX_K}, "
+                    f"got k={args.k}")
+        if not 1 <= args.minimizer_w <= args.k:
+            return (f"--minimizer-w {args.minimizer_w} must lie in "
+                    f"1..k={args.k}")
     return None
 
 
@@ -322,8 +325,8 @@ def main(argv=None) -> int:
                    help="upload raw ASCII rows instead of 2-bit packed "
                         "batches")
     c.add_argument("--devices", type=int, default=1,
-                   help="shard counting over N devices (k <= 31): N GPUs, "
-                        "or N shards on the CPU with --device cpu")
+                   help="shard counting over N devices: N GPUs, or N "
+                        "shards on the CPU with --device cpu")
     c.add_argument("--route-capacity", type=int, default=4096,
                    help="per-destination lane budget per routing pass "
                         "(sharded mode)")
@@ -333,9 +336,9 @@ def main(argv=None) -> int:
                    default="hash",
                    help="sharded-mode routing: 'hash' ships each k-mer to "
                         "its hash-prefix owner; 'minimizer' ships packed "
-                        "super-k-mer runs to minimizer owners (ASCII "
-                        "ingest; --route-capacity is then a budget of "
-                        "super-k-mers).  Ignored with --devices 1")
+                        "super-k-mer runs to minimizer owners (k <= 31, "
+                        "ASCII ingest; --route-capacity is then a budget "
+                        "of super-k-mers).  Ignored with --devices 1")
     c.add_argument("--minimizer-w", type=int, default=11,
                    help="minimizer width for --partition minimizer")
     c.add_argument("--seed", type=int, default=0,

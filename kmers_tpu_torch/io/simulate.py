@@ -14,11 +14,21 @@ _ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 _CHUNK = 1 << 16
 
 
+def _genome_codes(rs: np.random.RandomState, genome_len: int) -> np.ndarray:
+    return rs.randint(0, 4, size=genome_len).astype(np.uint8)
+
+
+def genome(genome_len: int, seed: int) -> np.ndarray:
+    """The [genome_len] uint8 ASCII genome that iter_reads and write_fastq
+    sample their reads from for the same seed."""
+    return _ACGT[_genome_codes(np.random.RandomState(seed), genome_len)]
+
+
 def iter_reads(genome_len: int, n_reads: int, read_len: int,
                sub_rate: float, n_rate: float, seed: int):
     """Yield [n, read_len] uint8 ASCII read chunks (n_reads in total)."""
     rs = np.random.RandomState(seed)
-    genome = rs.randint(0, 4, size=genome_len).astype(np.uint8)
+    genome = _genome_codes(rs, genome_len)
     windows = np.lib.stride_tricks.sliding_window_view(genome, read_len)
     for first in range(0, n_reads, _CHUNK):
         n = min(_CHUNK, n_reads - first)

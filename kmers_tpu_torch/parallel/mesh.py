@@ -7,12 +7,14 @@ The JAX package runs its sharded layer as one SPMD program over a
   * a mesh is a tuple of ``torch.device``s, one per shard; a device may
     repeat (D shards on one card, or on the CPU);
   * the shard bodies run in turn from this process, each on its device;
-  * ``all_to_all`` is the one collective: it moves every sender's
-    ``[D, ...]`` send buffer rows to their receivers by tensor copies.
+  * the collectives move tensors between shards by copies:
+    ``all_to_all`` moves every sender's ``[D, ...]`` send buffer rows to
+    their receivers, ``shift_left`` each shard's buffer to its left
+    neighbour (the sequence-parallel halo).
 
-Swapping ``all_to_all`` for ``torch.distributed.all_to_all_single`` is
-what a multi-process (multi-host) mesh needs; nothing else here assumes
-one process.
+Swapping these for ``torch.distributed``'s ``all_to_all_single`` and
+send / recv is what a multi-process (multi-host) mesh needs; nothing else
+here assumes one process.
 """
 
 from __future__ import annotations
@@ -81,6 +83,17 @@ def all_to_all(bufs: Sequence[torch.Tensor], mesh: Mesh) -> list:
                          "send buffers")
     return [torch.stack([bufs[s][r].to(mesh[r]) for s in range(d)])
             for r in range(d)]
+
+
+def shift_left(bufs: Sequence[torch.Tensor], mesh: Mesh) -> list:
+    """Each shard's buffer to its left neighbour: receiver i < D - 1 gets
+    bufs[i + 1] on mesh[i], the last shard zeros of its own buffer's shape
+    (``jax.lax.ppermute(x, "d", [(i, i - 1) for i in range(1, D)])``)."""
+    d = len(mesh)
+    if len(bufs) != d:
+        raise ValueError(f"shift_left over {d} shards needs {d} buffers")
+    return ([bufs[i + 1].to(mesh[i]) for i in range(d - 1)]
+            + [torch.zeros_like(bufs[-1])])
 
 
 def gather(tensors: Sequence[torch.Tensor], device) -> torch.Tensor:

@@ -15,9 +15,14 @@ A batch becomes one table, in the form `aggregate` names (default from
                   K7, packed plain).  The compact and run-length forms
                   take the plain windows of ops.kmer, as the JAX package
                   does off its unit kernels.
-  mesh, k <= 31   make_sharded_counter: hash-prefix routing of every
-                  k-mer (parallel.route.route);
-                  make_superkmer_counter: minimizer partition, runs of
+  mesh            make_sharded_counter (k <= 32) and
+                  make_sharded_counter_wide (33 <= k <= 64): hash-prefix
+                  routing of every k-mer (parallel.route.route,
+                  route_wide);
+                  make_sequence_parallel_counter: one long sequence split
+                  over the shards, windows across the cuts from the halo
+                  (parallel.halo), then the same routing;
+  mesh, k <= 31   make_superkmer_counter: minimizer partition, runs of
                   k-mers that share a minimizer travel as one lane of
                   packed bases (route_payload), selected by kernel K9;
                   make_sharded_minimizer_counter: each k-mer's minimizer
@@ -49,6 +54,7 @@ from ..ops import encoding, kmer
 from ..ops import hash as hash_ops
 from ..ops import minimizer as mini_ops
 from . import count as count_ops
+from . import halo as halo_ops
 from . import mesh as mesh_ops
 from . import route as route_ops
 from .count import UnitTable, UnitTableWide
@@ -210,28 +216,38 @@ def _psum(values, device) -> torch.Tensor:
     return mesh_ops.gather(values, device).sum()
 
 
-def _check_sharded(aggregate: str, k: int, what: str) -> None:
+def _check_sharded(aggregate: str, k: int, what: str, lo: int = 1,
+                   hi: int = NARROW_MAX_K) -> None:
+    """lo <= k <= hi, and a unit table only where the key has a spare flag
+    bit: never at k = 32 or 64, whose unit pattern is a real key."""
     _resolve_aggregate(True, aggregate)
-    check_k_range(k, 1, NARROW_MAX_K, what)
+    check_k_range(k, lo, hi, what)
+    if aggregate == "unit" and k in (WORD_K, MAX_WIDE_K):
+        raise ValueError(f"{what}: aggregate='unit' needs a spare key bit, "
+                         f"k={k} has none")
 
 
-def _shard_table(words: torch.Tensor, valid: torch.Tensor, k: int,
-                 aggregate: str):
-    """A shard's table of its received words: the lanes themselves for
-    "unit", else count_words' compact table (K11's sort on the card), as
-    the JAX package's sharded tails do for "compact" and "runlength"."""
+def _shard_table(words, valid: torch.Tensor, k: int, aggregate: str):
+    """A shard's table of its received words (int64, or (hi, lo) past
+    k = 32): the lanes themselves for "unit", else count_words' compact
+    table (K11's sort on the card at k <= 31), as the JAX package's
+    sharded tails do for "compact" and "runlength"."""
+    wide = k > WORD_K
     if aggregate == "unit":
-        return count_ops.unit_table(words, valid)
-    return count_ops.count_words(words, valid, max_k=k)
+        return (count_ops.unit_table_wide if wide
+                else count_ops.unit_table)(words, valid)
+    return (count_ops.count_words_wide if wide
+            else count_ops.count_words)(words, valid, max_k=k)
 
 
 def _sharded_count_tail(canon, valid, n_reads: int, n_win: int, mesh,
                         k: int, capacity: int, seed: int, passes: int,
                         aggregate: str) -> CountResult:
-    """Shared tail of the sharded count bodies: route, then each shard's
-    table of the lanes it received."""
-    routed = route_ops.route(canon, valid, mesh, capacity, seed,
-                             passes=passes)
+    """Shared tail of the sharded count bodies: route (route_wide past
+    k = 32), then each shard's table of the lanes it received."""
+    wide = k > WORD_K
+    route = route_ops.route_wide if wide else route_ops.route
+    routed = route(canon, valid, mesh, capacity, seed, passes=passes)
     dev = mesh[0]
     emitted = _psum([v.sum() for v in valid], dev)
     metrics = {
@@ -240,8 +256,9 @@ def _sharded_count_tail(canon, valid, n_reads: int, n_win: int, mesh,
         "windows_skipped": n_reads * n_win - emitted,
         "route_overflow": _psum([r.overflow for r in routed], dev),
         "route_rerouted": _psum([r.rerouted for r in routed], dev),
-        # 8 B word + 1 B mask per received lane
-        "route_bytes": sum(r.words.numel() for r in routed) * 9,
+        # an 8 B (16 B wide) word + 1 B mask per received lane
+        "route_bytes": sum(r.valid.numel() for r in routed)
+        * (17 if wide else 9),
     }
     return CountResult([_shard_table(r.words, r.valid, k, aggregate)
                         for r in routed], metrics)
@@ -249,43 +266,34 @@ def _sharded_count_tail(canon, valid, n_reads: int, n_win: int, mesh,
 
 def _windows_tail(wins, n_reads: int, **kw) -> CountResult:
     """Each shard's windows -> their canonical words -> the tail."""
+    canonical = (kmer.canonical_word_wide if kw["k"] > WORD_K
+                 else kmer.canonical_word)
     return _sharded_count_tail(
-        [kmer.canonical_word(w.fw, w.rc) for w in wins],
+        [canonical(w.fw, w.rc) for w in wins],
         [w.valid for w in wins], n_reads, wins[0].n_windows, **kw)
 
 
 def _sharded_count_body(reads_local, **kw) -> CountResult:
     """Each shard's [B/D, L] reads -> plain windows -> routed -> owned
     tables."""
-    return _windows_tail([kmer.kmer_windows(r, kw["k"]) for r in reads_local],
+    windows = (kmer.kmer_windows_wide if kw["k"] > WORD_K
+               else kmer.kmer_windows)
+    return _windows_tail([windows(r, kw["k"]) for r in reads_local],
                          sum(r.shape[0] for r in reads_local), **kw)
 
 
 def _sharded_count_body_packed(words_local, validbits_local,
                                **kw) -> CountResult:
     """_sharded_count_body over each shard's packed ingest."""
+    windows = (kmer.kmer_windows_packed_wide if kw["k"] > WORD_K
+               else kmer.kmer_windows_packed)
     return _windows_tail(
-        [kmer.kmer_windows_packed(w, v, kw["k"])
-         for w, v in zip(words_local, validbits_local)],
+        [windows(w, v, kw["k"]) for w, v in zip(words_local, validbits_local)],
         sum(w.shape[0] for w in words_local), **kw)
 
 
-def make_sharded_counter(mesh, k: int, *, route_capacity: int, seed: int = 0,
-                         route_passes: int = 1, packed: bool = False,
-                         aggregate: str = "compact"):
-    """A sharded counting step over `mesh` (k <= 31): fn(reads [B, L]
-    uint8), or fn(words [B, L/16], validbits [B, L/32]) with packed=True,
-    -> CountResult with one table per shard, holding only the k-mers that
-    shard owns (compact by default, K11's sort on the card; the routed
-    lanes themselves for aggregate="unit"), and metrics summed over the
-    shards.  B must split evenly over the mesh.  The windows are the
-    plain ones of ops.kmer on every device, as in the JAX package
-    (pipeline.py:224-243).
-
-    route_passes > 1 re-routes bucket overflow in extra exchanges (exact
-    while every destination load <= passes * capacity); what still
-    overflows is counted in metrics["route_overflow"]."""
-    _check_sharded(aggregate, k, "make_sharded_counter")
+def _sharded_counter(mesh, k: int, route_capacity: int, seed: int,
+                     route_passes: int, packed: bool, aggregate: str):
     body = _sharded_count_body_packed if packed else _sharded_count_body
 
     def fn(*batch) -> CountResult:
@@ -296,6 +304,42 @@ def make_sharded_counter(mesh, k: int, *, route_capacity: int, seed: int = 0,
     return fn
 
 
+def make_sharded_counter(mesh, k: int, *, route_capacity: int, seed: int = 0,
+                         route_passes: int = 1, packed: bool = False,
+                         aggregate: str = "compact"):
+    """A sharded counting step over `mesh` (k <= 32): fn(reads [B, L]
+    uint8), or fn(words [B, L/16], validbits [B, L/32]) with packed=True,
+    -> CountResult with one table per shard, holding only the k-mers that
+    shard owns (compact by default, K11's sort on the card at k <= 31;
+    the routed lanes themselves for aggregate="unit", k <= 31), and
+    metrics summed over the shards.  B must split evenly over the mesh.
+    The windows are the plain ones of ops.kmer on every device, as in the
+    JAX package (pipeline.py:224-243).  At k = 32 "runlength" gives the
+    compact table too, as in the JAX package (pipeline.py:206-209).
+
+    route_passes > 1 re-routes bucket overflow in extra exchanges (exact
+    while every destination load <= passes * capacity); what still
+    overflows is counted in metrics["route_overflow"]."""
+    _check_sharded(aggregate, k, "make_sharded_counter", hi=WORD_K)
+    return _sharded_counter(mesh, k, route_capacity, seed, route_passes,
+                            packed, aggregate)
+
+
+def make_sharded_counter_wide(mesh, k: int, *, route_capacity: int,
+                              seed: int = 0, route_passes: int = 1,
+                              packed: bool = False,
+                              aggregate: str = "compact"):
+    """make_sharded_counter for 33 <= k <= 64 (kmers_tpu/parallel/
+    pipeline.py:464-499): 128-bit words through route_wide (17 wire bytes
+    a received lane), each shard's table count_words_wide's compact one,
+    or for aggregate="unit" (k <= 63) its UnitTableWide of the routed
+    lanes."""
+    _check_sharded(aggregate, k, "make_sharded_counter_wide", WORD_K + 1,
+                   MAX_WIDE_K)
+    return _sharded_counter(mesh, k, route_capacity, seed, route_passes,
+                            packed, aggregate)
+
+
 def global_table(result: CountResult) -> count_ops.CountTable:
     """One key-sorted CountTable from a sharded result's per-shard tables
     of any form, on the first shard's device: merge_many's weighted
@@ -303,6 +347,34 @@ def global_table(result: CountResult) -> count_ops.CountTable:
     across shards, so it is exact for the minimizer partition too, whose
     shards are not key-disjoint."""
     return count_ops.merge_many(result.table)
+
+
+# -- sequence-parallel counting (one long sequence) ---------------------------
+
+def make_sequence_parallel_counter(mesh, k: int, *, route_capacity: int,
+                                   seed: int = 0, route_passes: int = 1):
+    """Count the k-mers of ONE long sequence split contiguously over
+    `mesh` (kmers_tpu/parallel/pipeline.py:509-556): fn(seq [G] uint8
+    ASCII, G divisible by the number of shards) -> CountResult with, per
+    shard, the compact table of the k-mers it owns (count_words, K11's
+    sort on the card at k <= 31; count_words_wide past k = 32) and metrics
+    kmers_emitted, route_overflow, route_rerouted.  Each shard windows
+    its block extended by the halo (halo.sharded_windows), and the
+    canonical words route as make_sharded_counter's do."""
+    check_k_range(k, 1, MAX_WIDE_K, "make_sequence_parallel_counter")
+    windows = (halo_ops.sharded_windows_wide if k > WORD_K
+               else halo_ops.sharded_windows)
+
+    def fn(seq: torch.Tensor) -> CountResult:
+        blocks = mesh_ops.batch_sharding(seq.reshape(-1), mesh)
+        res = _windows_tail(windows(blocks, k, mesh), 1, mesh=mesh, k=k,
+                            capacity=route_capacity, seed=seed,
+                            passes=route_passes, aggregate="compact")
+        return CountResult(res.table, {
+            m: res.metrics[m]
+            for m in ("kmers_emitted", "route_overflow", "route_rerouted")})
+
+    return fn
 
 
 # -- sharded counting: super-k-mers (minimizer partition) ----------------------

@@ -1,5 +1,5 @@
 """Hash-prefix routing of k-mers to their owning shards (counterpart of
-``kmers_tpu/parallel/route.py``, k <= 31).
+``kmers_tpu/parallel/route.py``).
 
 Each of the D shards of a mesh owns 1/D of the 64-bit space of the
 Feistel-mixed key; a k-mer goes to shard ``(f_hi * D) >> 32`` of its mix
@@ -17,11 +17,13 @@ all_to_all, as in the JAX package:
 
 Lanes past passes * C of a bucket are dropped and counted (``overflow``);
 lanes shipped in passes >= 2 are counted too (``rerouted``).
-``route_queries`` is the lookup service's round trip: one pass out, and
-the answers carried back to the senders' lanes.  Every
-function takes one tensor per shard (a list in mesh order) and returns
-one result per shard: the senders' phase runs for every shard, then the
-exchange, then the receivers' phase.
+``route_wide`` routes 128-bit words (33 <= k <= 64) the way
+``route_payload`` routes planes: a stable owner sort, the owner taken
+from the words' mix hash.  ``route_queries`` is the lookup service's
+round trip: one pass out, and the answers carried back to the senders'
+lanes.  Every function takes one tensor per shard (a list in mesh
+order) and returns one result per shard: the senders' phase runs for
+every shard, then the exchange, then the receivers' phase.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from ..core import u64
+from ..core import u64, u128
 from . import mesh as mesh_ops
 
 
@@ -41,6 +43,15 @@ class Routed(NamedTuple):
     valid: torch.Tensor     # bool [passes * D * C]
     overflow: torch.Tensor  # int64 scalar: lanes this sender dropped
     rerouted: torch.Tensor  # int64 scalar: lanes it shipped in passes >= 2
+
+
+class RoutedWide(NamedTuple):
+    """128-bit k-mer words on their owning shard."""
+
+    words: tuple            # (hi, lo) int64 [passes * D * C] received words
+    valid: torch.Tensor
+    overflow: torch.Tensor
+    rerouted: torch.Tensor
 
 
 class RoutedPlanes(NamedTuple):
@@ -64,6 +75,14 @@ def owner_of(words: torch.Tensor, n_shards: int, seed: int = 0) -> torch.Tensor:
     """The owning shard of int64 words: the multiply-shift of the high
     half of their Feistel mix (a prefix of the mixed key)."""
     return _mul_shift32(u64.shr(u64.feistel_mix(words, seed), 32), n_shards)
+
+
+def owner_of_wide(hi: torch.Tensor, lo: torch.Tensor, n_shards: int,
+                  seed: int = 0) -> torch.Tensor:
+    """The owning shard of 128-bit (hi, lo) words: the multiply-shift of
+    the high half of their 64-bit mix hash (kmers_tpu/parallel/
+    route.py:335-337)."""
+    return _mul_shift32(u64.shr(u128.mix_hash(hi, lo, seed), 32), n_shards)
 
 
 def _owner_boundaries(n_shards: int) -> list:
@@ -180,6 +199,16 @@ def route(words: Sequence[torch.Tensor], valid: Sequence[torch.Tensor], mesh,
                                                 capacity, passes)]
 
 
+def _owner_sort(owner: torch.Tensor, planes, n_shards: int):
+    """A stable sort of one sender's lanes by owner (invalid lanes carry
+    owner n_shards and go last): (sorted owners, the planes flattened in
+    that order, per-owner counts [n_shards])."""
+    order = torch.sort(owner, stable=True).indices
+    o = owner[order]
+    return (o, [p.reshape(-1)[order] for p in planes],
+            _owner_histogram(o, n_shards))
+
+
 def route_payload(owner_words: Sequence[torch.Tensor],
                   valid: Sequence[torch.Tensor], planes, mesh,
                   capacity: int, seed: int = 0, passes: int = 1,
@@ -198,11 +227,8 @@ def route_payload(owner_words: Sequence[torch.Tensor],
     sorted_planes, counts, weights = [], [], []
     for ow, v, pl in zip(owner_words, valid, planes):
         v = v.reshape(-1)
-        owner = torch.where(v, owner_of(ow.reshape(-1), d, seed), d)
-        order = torch.sort(owner, stable=True).indices
-        o = owner[order]
-        sp = [p.reshape(-1)[order] for p in pl]
-        cnt = _owner_histogram(o, d)
+        o, sp, cnt = _owner_sort(
+            torch.where(v, owner_of(ow.reshape(-1), d, seed), d), pl, d)
         if weight_plane is None:
             weights.append(torch.zeros((), dtype=torch.int64, device=o.device))
         else:
@@ -220,6 +246,27 @@ def route_payload(owner_words: Sequence[torch.Tensor],
             for (planes_r, rv, ov, rr), w in zip(
                 _exchange(sorted_planes, counts, mesh, capacity, passes),
                 weights)]
+
+
+def route_wide(words: Sequence[tuple], valid: Sequence[torch.Tensor], mesh,
+               capacity: int, seed: int = 0, passes: int = 1) -> list:
+    """Route each shard's 128-bit (hi, lo) k-mer words (int64, any shape)
+    to their owners, owner_of_wide (kmers_tpu/parallel/route.py:340-381).
+    Not the Feistel domain of `route`: a stable sort by owner, invalid
+    lanes last, carries the words themselves, so received lanes run pass,
+    sender, lane as in the JAX package.  capacity, passes, overflow and
+    rerouted as in `route`.  Returns one RoutedWide per shard."""
+    d = len(mesh)
+    sorted_words, counts = [], []
+    for (hi, lo), v in zip(words, valid):
+        hi, lo, v = hi.reshape(-1), lo.reshape(-1), v.reshape(-1)
+        _, sw, cnt = _owner_sort(
+            torch.where(v, owner_of_wide(hi, lo, d, seed), d), (hi, lo), d)
+        sorted_words.append(sw)
+        counts.append(cnt)
+    return [RoutedWide(tuple(planes), rv, ov, rr)
+            for planes, rv, ov, rr in _exchange(sorted_words, counts, mesh,
+                                                capacity, passes)]
 
 
 class RoutedQueries(NamedTuple):

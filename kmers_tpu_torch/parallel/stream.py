@@ -1,7 +1,7 @@
 """Streaming k-mer counting over many read batches (counterpart of
 ``kmers_tpu/parallel/stream.py``): ``StreamingCounter`` on one device,
 1 <= k <= 64 (128-bit keys past k = 32), and ``ShardedStreamingCounter``
-over a mesh, k <= 31.
+over a mesh, 1 <= k <= 64 (the minimizer partition k <= 31).
 
   per batch:    unit emission -- the window kernel's folded canonical keys
                 as a count.UnitTable(Wide); no per-batch sort.  k = 32 and
@@ -289,19 +289,20 @@ class StreamingCounter:
 
 
 class ShardedStreamingCounter(StreamingCounter):
-    """StreamingCounter over a mesh (k <= 31): each batch splits by rows
-    over the shards, its k-mers travel to their owning shards
-    (partition="hash": every k-mer, route.route; "minimizer": runs of
-    k-mers sharing a minimizer as packed super-k-mers, route_payload),
-    and each shard's received lanes become a pending unit table on its
-    device.  At consolidation the pending shard tables are gathered to
-    the table's device (the mesh's first) and merge as the single-device
-    counter's do, so the table is the same.  Routing overflow is counted
-    per batch (route_overflow in k-mers, route_rerouted) and committed
-    with the merge, as are the super-k-mer count and the wire bytes of
-    the send buffers (route_superkmers, route_bytes); raise
-    route_capacity or route_passes until route_overflow is 0 for exact
-    tables."""
+    """StreamingCounter over a mesh (1 <= k <= 64): each batch splits by
+    rows over the shards, its k-mers travel to their owning shards
+    (partition="hash": every k-mer, route.route or route_wide past
+    k = 32; "minimizer", k <= 31: runs of k-mers sharing a minimizer as
+    packed super-k-mers, route_payload), and each shard's received lanes
+    become a pending table on its device: a unit table, or at k = 32 and
+    k = 64 a compact one.  At consolidation the pending shard tables are
+    gathered to the table's device (the mesh's first) and merge as the
+    single-device counter's do, so the table is the same.  Routing
+    overflow is counted per batch (route_overflow in k-mers,
+    route_rerouted) and committed with the merge, as are the super-k-mer
+    count and the wire bytes of the send buffers (route_superkmers,
+    route_bytes); raise route_capacity or route_passes until
+    route_overflow is 0 for exact tables."""
 
     def __init__(self, k, capacity: int, merge_every: int = 16, *,
                  mesh=None, n_devices: Optional[int] = None,
@@ -310,12 +311,11 @@ class ShardedStreamingCounter(StreamingCounter):
                  minimizer_w: Optional[int] = None):
         mesh = mesh if mesh is not None else mesh_ops.make_mesh(n_devices)
         super().__init__(k, capacity, merge_every, device=mesh[0])
-        if self.k > NARROW_MAX_K:
-            raise NotImplementedError(
-                f"k={self.k}: the sharded path at k > 31 is not ported")
         if partition not in ("hash", "minimizer"):
             raise ValueError(f"partition must be 'hash' or 'minimizer', "
                              f"got {partition!r}")
+        if partition == "minimizer" and self.k > NARROW_MAX_K:
+            raise ValueError("minimizer partitioning needs k <= 31")
         # seed and minimizer width default from the spec; kwargs win
         seed = self.spec.seed if seed is None else seed
         if minimizer_w is None:
@@ -337,9 +337,10 @@ class ShardedStreamingCounter(StreamingCounter):
                 mesh, self.k, minimizer_w, **route)
             self._scount_packed = None    # super-k-mers start from ASCII
         else:
-            self._scount = pipeline.make_sharded_counter(mesh, self.k, **route)
-            self._scount_packed = pipeline.make_sharded_counter(
-                mesh, self.k, packed=True, **route)
+            mk = (pipeline.make_sharded_counter_wide if self.wide
+                  else pipeline.make_sharded_counter)
+            self._scount = mk(mesh, self.k, **route)
+            self._scount_packed = mk(mesh, self.k, packed=True, **route)
 
     def _pad_rows(self, t: torch.Tensor, fill: int) -> torch.Tensor:
         """Pad a batch with `fill` rows so that it splits over the mesh."""
@@ -376,11 +377,8 @@ class ShardedStreamingCounter(StreamingCounter):
 
     def _consolidate(self) -> None:
         # gather each pending batch's shard tables to the table's device
-        self._pending = [
-            count_ops.UnitTable(
-                mesh_ops.gather([t.keys_hi for t in p], self.device),
-                mesh_ops.gather([t.keys_lo for t in p], self.device))
-            if isinstance(p, list) else p for p in self._pending]
+        self._pending = [_gather_shards(p, self.device)
+                         if isinstance(p, list) else p for p in self._pending]
         super()._consolidate()
         # the overflow counters commit only after the merge succeeded (it
         # raised otherwise), as the k-mer mass does: discard_pending's
@@ -392,6 +390,23 @@ class ShardedStreamingCounter(StreamingCounter):
             if sk is not None:
                 self.route_superkmers += int(sk)
         self._pending_overflow = []
+
+
+def _gather_shards(tables, device):
+    """One batch's per-shard tables (one form and shape) as one table on
+    `device`, every plane stacked [D, ...]: unit tables (narrow or wide)
+    for the streaming merge, compact ones (k = 32, 64) for merge_many,
+    which reads [D, cap] shard tables as the JAX package's does."""
+    t = tables[0]
+    keys = tuple(mesh_ops.gather([s.keys[i] for s in tables], device)
+                 for i in range(len(t.keys)))
+    if isinstance(t, count_ops.UnitTable):
+        return count_ops.UnitTable(*keys)
+    if isinstance(t, count_ops.UnitTableWide):
+        return count_ops.UnitTableWide(keys)
+    return count_ops.make_table(
+        keys, mesh_ops.gather([s.counts for s in tables], device),
+        sum(s.n_unique for s in tables))
 
 
 def auto_merge_every(capacity: int, batch_lanes: int) -> int:

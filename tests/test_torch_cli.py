@@ -77,19 +77,30 @@ def test_cli_matches_kmers_tpu(fastq, tmp_path, extra, want_rc):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--devices", "2", "-k", "33"],                     # wide sharded path
+    ["--devices", "2", "-k", "33", "--route-capacity", "16384"],  # sharded
     ["--devices", "2", "--partition", "minimizer", "-k", "63"],
     ["-k", "32"], ["-k", "64"],                         # counted
+    ["--devices", "2", "-k", "32", "--route-capacity", "16384"],
+    ["--devices", "2", "-k", "63", "--route-capacity", "16384"],
+    ["--devices", "2", "-k", "64", "--route-capacity", "16384"],
 ])
 def test_cli_rejects_unported_options(fastq, tmp_path, argv):
-    """The sharded path at k > 31 exits 2; k = 32 and k = 64 on one
-    device count, to kmers_tpu's table (SMOKE_DIGEST_32 / _64)."""
-    out = str(tmp_path / "x.npz")
-    args = ["count", fastq, "-o", out, "-k", "21", "--capacity", "65536",
-            "--batch", "256", "--length", "160", "--device", "cpu"] + argv
-    rc, _, err = run(port_main, args)
-    if "--devices" in argv:
-        assert rc == 2 and "not ported" in err
+    """The hash-sharded count at k = 32, 33, 63 and 64 gives kmers_tpu's
+    exit code and table; the minimizer partition past k = 31 exits 2
+    (kmers_tpu raises a ValueError there, ROADMAP section C); k = 32 and
+    k = 64 on one device count to kmers_tpu's table (SMOKE_DIGEST_32 /
+    _64)."""
+    out, j_out = str(tmp_path / "x.npz"), str(tmp_path / "j.npz")
+    args = ["--capacity", "65536", "--batch", "256", "--length", "160", "-k",
+            "21"] + argv
+    rc, _, err = run(port_main, ["count", fastq, "-o", out, "--device",
+                                 "cpu"] + args)
+    if "minimizer" in argv:
+        assert rc == 2 and "--partition minimizer needs k <= 31" in err
+    elif "--devices" in argv:
+        j_rc = run(jax_main, ["count", fastq, "-o", j_out] + args)[0]
+        assert rc == j_rc == 0, err
+        assert npz_digest(out) == npz_digest(j_out)
     else:
         assert rc == 0, err
         assert npz_digest(out) == smoke.SMOKE_DIGESTS[int(argv[-1])]

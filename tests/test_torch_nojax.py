@@ -3,7 +3,8 @@ that holds only ``kmers_tpu_torch/`` and ``native/``, with
 ``sys.modules["jax"] = None`` (any import of jax then fails), every module
 imports, and a tiny count runs on the CPU at k = 15 (on one device, and
 sharded over two CPU shards by hash and by minimizer), k = 32, k = 63 and
-k = 64; the sharded lookup service answers over two CPU shards at both
+k = 64 (k = 32 and 63 sharded over two CPU shards too); the sharded
+lookup service answers over two CPU shards at both
 of its arms.  The sources neither import nor name a path into
 ``kmers_tpu/``."""
 
@@ -69,6 +70,11 @@ for k in (32, 64):
     assert main(["count", fq, "-k", str(k), "-o", full, "--batch", "16",
                  "--length", "128", "--device", "cpu"]) == 0
     assert main(["stats", full, "--device", "cpu"]) == 0
+for k, flat in ((63, wide), (32, os.path.join(sys.argv[1], "k32.npz"))):
+    sh = os.path.join(sys.argv[1], f"sharded_k{k}.npz")
+    assert main(["count", fq, "-k", str(k), "-o", sh, "--batch", "16",
+                 "--length", "128", "--device", "cpu", "--devices", "2"]) == 0
+    assert npz_digest(sh) == npz_digest(flat), k
 assert "kmers_tpu" not in sys.modules and "jax.numpy" not in sys.modules
 print("NOJAX-OK")
 """

@@ -348,17 +348,22 @@ def test_superkmer_reverse_complement_pairs_exact(meshes):
 
 
 def test_counters_reject_what_is_not_ported(meshes):
+    """The hash partition builds at k = 32 and past it (test_torch_sharded_
+    wide.py holds those against JAX); an unknown aggregate or partition,
+    super-k-mers past k = 31 and the minimizer partition past k = 31 (a
+    ValueError, as in the JAX package) are refused."""
     _, tm = meshes
     with pytest.raises(ValueError, match="aggregate"):
         tpipe.make_sharded_counter(tm, 21, route_capacity=8,
                                    aggregate="sorted")
-    with pytest.raises(ValueError):
-        tpipe.make_sharded_counter(tm, 32, route_capacity=8)
+    assert callable(tpipe.make_sharded_counter(tm, 32, route_capacity=8))
     with pytest.raises(ValueError):
         tpipe.make_superkmer_counter(tm, 33, 11, route_capacity=8)
     for k in (32, 41, 64):
-        with pytest.raises(NotImplementedError):
-            ShardedStreamingCounter(k, 64, mesh=tm)
+        sc = ShardedStreamingCounter(k, 64, mesh=tm)
+        assert sc.wide == (k > 32) and sc.n_devices == D
+    with pytest.raises(ValueError, match="k <= 31"):
+        ShardedStreamingCounter(41, 64, mesh=tm, partition="minimizer")
     with pytest.raises(ValueError):
         ShardedStreamingCounter(21, 64, mesh=tm, partition="range")
 
