@@ -63,6 +63,21 @@ the exit code is non-zero):
      independent torch.unique count of the whole sequence with no key on
      two shards, the k=31 run launching K11.  Walls, k-mers/s, peak
      memory and route_bytes.
+ 15. the multi-process mesh (after 14): two processes on the one card,
+     joined by torch.distributed over gloo with CUDA tensors, two shards
+     each (D = 4), each spawned as `chip_smoke.py --worker` and feeding
+     its local_read_slice of every batch: ShardedStreamingCounter over the
+     1M reads by hash at k=31 (phase 7's D = 4 route capacity), by
+     minimizer (k=31, w=11) and by hash at k=63 (phase 14's) must save
+     phase 3's / phase 4's table on both processes with zero overflow and
+     the one-process run's route_bytes, launching K3 and K4 (K9 by
+     minimizer, K6 at k=63); phase 14's sequence-parallel steps, each
+     process half the genome, must give phase 14's shard tables lane for
+     lane (K11 at k=31); two ranks of `python -m kmers_tpu_torch.dryrun`
+     must pass every check and equal the one-process dry run.  Walls by
+     process, k-mers/s, route_bytes and peak memory by process beside the
+     one-process D = 4 walls.  A worker that fails or runs past its
+     timeout fails the phase.
  13. the distributed lookup service (runs before phase 12, whose profiler
      would slow it), both answer arms of make_sharded_lookup (merge: K3
      with its source-index plane and K4; binary search): bench_configs.py
@@ -169,6 +184,16 @@ SHARDED_WIDE = dict(shards=4, route_capacity=1 << 15, ks=(32, 63, 64))
 # plus `margin`
 SEQ_PARALLEL = dict(shards=4, ks=(31, 63), n_offsets=(-2, 0, 5),
                     margin=1.05)
+# phase 15: the multi-process mesh, two processes on the one card over
+# gloo with CUDA tensors, two shards each (D = 4): the 1M reads by hash at
+# k = 31 (phase 7's D = 4 route capacity), by minimizer (k = 31, w = 11,
+# phase 7's) and by hash at k = 63 (phase 14's); seconds a process group
+# waits in a collective, and a phase 15 spawn may run
+MULTIPROCESS = dict(processes=2, local_shards=2,
+                    runs=(("hash", 31, 1 << 16), ("minimizer", 31, 1 << 13),
+                          ("hash", 63, 1 << 15)),
+                    group_timeout=300, spawn_timeout=600)
+WORKER_CMD = [sys.executable, os.path.abspath(__file__)]
 # phase 13's lookups: bench_configs.py --lookup's table and queries on one
 # shard (:576-596), and phase 3's table split over four shards of 2^22
 # slots with 2^20 queries, 2^17 lanes a sender and destination
@@ -1389,7 +1414,6 @@ def phase_sharded_wide(stats: dict, workdir: str, seed: int) -> None:
 
     from kmers_tpu_torch import kernels
     from kmers_tpu_torch.core import u64
-    from kmers_tpu_torch.io import simulate
     from kmers_tpu_torch.kernels import sort as ksort
     from kmers_tpu_torch.ops import kmer
     from kmers_tpu_torch.parallel import pipeline
@@ -1453,13 +1477,9 @@ def phase_sharded_wide(stats: dict, workdir: str, seed: int) -> None:
             f"{ {n: c for n, c in launches.items() if c} }")
 
     g = SIZES["genome"]
-    seq = simulate.genome(g, seed)
     cut = g // shards
-    for c in range(cut, g, cut):
-        for off in SEQ_PARALLEL["n_offsets"]:
-            seq[c + off] = ord("N")
-    seq_t = torch.from_numpy(seq).to(DEVICE)
-    route_capacity = int(SEQ_PARALLEL["margin"] * cut / shards)
+    seq_t = torch.from_numpy(seq_parallel_genome(seed, g)).to(DEVICE)
+    route_capacity = seq_parallel_capacity(g)
     for k in SEQ_PARALLEL["ks"]:
         name = f"sequence_parallel_d{shards}_k{k}"
         step = pipeline.make_sequence_parallel_counter(
@@ -1526,7 +1546,9 @@ def phase_sharded_wide(stats: dict, workdir: str, seed: int) -> None:
                            kmers_per_s=emitted / wall,
                            route_bytes=route_bytes,
                            route_capacity=route_capacity, peak_bytes=peak,
-                           launches=launches)
+                           launches=launches,
+                           tables_digest=shard_tables_digest(res.table,
+                                                             mesh))
         say(f"phase 14 {name}: {g} bases, {shards} shards of {cut}, "
             f"{emitted} kmers, {got.shape[0]} distinct in {wall:.3f}s = "
             f"{emitted / wall:.4g} kmers/s, route_capacity {route_capacity}, "
@@ -1535,6 +1557,318 @@ def phase_sharded_wide(stats: dict, workdir: str, seed: int) -> None:
             f"== torch.unique count of the whole sequence, no key on two "
             f"shards; launches { {n: c for n, c in launches.items() if c} }"
             + k11)
+
+
+def spawn_ranks(cmd: list, workdir: str, name: str) -> list:
+    """MULTIPROCESS["processes"] ranks of `cmd`, each given its --rank,
+    --world and a file:// store under workdir, gloo on the loopback, and
+    its output sent to workdir/<name>.rank<r>.log (files, not pipes: a
+    rank blocked on a full pipe would stall the others' collectives).
+    Returns [(process, log path)]."""
+    store = os.path.join(workdir, name + ".store")
+    if os.path.exists(store):
+        os.remove(store)
+    world = MULTIPROCESS["processes"]
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    ranks = []
+    for r in range(world):
+        log = os.path.join(workdir, f"{name}.rank{r}.log")
+        with open(log, "w") as f:
+            ranks.append((subprocess.Popen(
+                cmd + ["--rank", str(r), "--world", str(world), "--init",
+                       "file://" + store], cwd=ROOT, env=env, stdout=f,
+                stderr=subprocess.STDOUT), log))
+    return ranks
+
+
+def finish_ranks(ranks: list, what: str) -> list:
+    """Each rank's report (the last line of its output, JSON), in rank
+    order.  A rank that exits non-zero fails the phase; one that runs past
+    MULTIPROCESS["spawn_timeout"] is killed with the others, and fails it."""
+    deadline = time.time() + MULTIPROCESS["spawn_timeout"]
+    try:
+        for p, _ in ranks:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        for p, _ in ranks:
+            p.kill()
+            p.wait()
+        raise AssertionError(f"{what} ran past "
+                             f"{MULTIPROCESS['spawn_timeout']} s")
+    texts = []
+    for r, (p, log) in enumerate(ranks):
+        with open(log) as f:
+            texts.append(f.read())
+        if p.returncode:
+            raise AssertionError(f"{what} rank {r} exited {p.returncode}:\n"
+                                 f"{texts[-1][-4000:]}")
+    return [json.loads(t.strip().splitlines()[-1]) for t in texts]
+
+
+def phase_multiprocess(stats: dict, workdir: str, seed: int) -> None:
+    """Phase 15: the multi-process mesh, two processes on the one card over
+    gloo with CUDA tensors, two shards each (D = 4).  The workers
+    (chip_smoke.py --worker) count the 1M reads as MULTIPROCESS["runs"]
+    say, each process feeding its local_read_slice of every batch, and
+    must each save phase 3's / phase 4's single-device table (npz_digest)
+    with route_overflow 0, the route_bytes of the one-process D = 4 run
+    (phase 7 / 14), and launch K3 and K4 (K9 by minimizer, K6 and K4 at
+    k = 63); then phase 14's sequence-parallel steps, each process its
+    half of the genome, whose shard tables must be phase 14's lane for
+    lane (K11 at k = 31).  Then two ranks of kmers_tpu_torch.dryrun must
+    pass every check and give the one-process D = 4 dry run's arrays and
+    checkpoints."""
+    import numpy as np
+    import torch
+
+    from kmers_tpu_torch import dryrun
+    from kmers_tpu_torch.parallel.mesh import make_mesh
+    from kmers_tpu_torch.parallel.stream import npz_digest
+
+    sync()
+    torch.cuda.empty_cache()
+    t_phase = time.time()
+    d = MULTIPROCESS["processes"] * MULTIPROCESS["local_shards"]
+    reports = finish_ranks(spawn_ranks(
+        WORKER_CMD + ["--worker", "--workdir", workdir, "--seed", str(seed),
+                      "--device", DEVICE, "--genome", str(SIZES["genome"])],
+        workdir, "phase15"), "phase 15 worker")
+    want = {k: npz_digest(os.path.join(workdir, f"ecoli_1m_k{k}.npz"))
+            for k in (31, 63)}
+    for partition, k, route_capacity in MULTIPROCESS["runs"]:
+        name = f"multiprocess_{partition}_d{d}_k{k}"
+        one = stats[f"sharded_{partition}_d{d}" + ("" if k == 31
+                                                    else f"_k{k}")]
+        runs = [rep["runs"][name] for rep in reports]
+        needed = (("merge_sorted_wide",) if k > 32 else ("merge_sorted",)) + (
+            "compress_flagged",) + (("minimizer_kernel",)
+                                    if partition == "minimizer" else ())
+        for rank, run in enumerate(runs):
+            if run["route_overflow"]:
+                raise AssertionError(f"{name} rank {rank}: route_overflow "
+                                     f"{run['route_overflow']}")
+            if run["digest"] != want[k]:
+                raise AssertionError(f"{name} rank {rank}: table differs "
+                                     "from the single-device count")
+            if run["route_bytes"] != one["route_bytes"]:
+                raise AssertionError(
+                    f"{name} rank {rank}: route_bytes {run['route_bytes']} "
+                    f"!= the one-process run's {one['route_bytes']}")
+            for kernel in needed:
+                if not run["launches"].get(kernel):
+                    raise AssertionError(f"{name} rank {rank}: {kernel} was "
+                                         "not launched")
+        for kernel in needed:
+            stats["launches"][kernel] += sum(r["launches"][kernel]
+                                             for r in runs)
+        walls = [r["wall_s"] for r in runs]
+        kmers = runs[0]["kmers"]
+        stats[name] = dict(wall_s=walls, kmers=kmers,
+                           kmers_per_s=kmers / max(walls),
+                           route_bytes=runs[0]["route_bytes"],
+                           route_capacity=route_capacity,
+                           merge_every=runs[0]["merge_every"],
+                           peak_bytes=[r["peak_bytes"] for r in runs],
+                           launches=[r["launches"] for r in runs],
+                           one_process_wall_s=one["wall_s"])
+        say(f"phase 15 {name} ({stats['smi']}): {kmers} kmers, walls "
+            f"{' / '.join(f'{w:.3f}' for w in walls)} s by process = "
+            f"{kmers / max(walls):.4g} kmers/s (one process, D = {d}: "
+            f"{one['wall_s']:.3f} s), route_capacity {route_capacity}, "
+            f"merge_every {runs[0]['merge_every']}, route_bytes "
+            f"{runs[0]['route_bytes']}, peak device memory "
+            f"{' / '.join(f'{r["peak_bytes"] / 2**20:.1f}' for r in runs)} "
+            f"MiB by process, overflow 0, both tables == single-device; "
+            f"launches by process {[r['launches'] for r in runs]}")
+    for k in SEQ_PARALLEL["ks"]:
+        name = f"multiprocess_sequence_parallel_d{d}_k{k}"
+        one = stats[f"sequence_parallel_d{d}_k{k}"]
+        runs = [rep["runs"][name] for rep in reports]
+        for rank, run in enumerate(runs):
+            if (run["route_overflow"] or run["kmers"] != one["kmers"]
+                    or run["tables_digest"] != one["tables_digest"]):
+                raise AssertionError(
+                    f"{name} rank {rank}: overflow {run['route_overflow']}, "
+                    f"kmers {run['kmers']} (phase 14 {one['kmers']}), or the "
+                    "shard tables differ from phase 14's")
+            if k <= 31 and not run["launches"].get("radix_sort_u64"):
+                raise AssertionError(f"{name} rank {rank}: radix_sort_u64 "
+                                     "was not launched")
+        if k <= 31:
+            stats["launches"]["radix_sort_u64"] += sum(
+                r["launches"]["radix_sort_u64"] for r in runs)
+        walls = [r["wall_s"] for r in runs]
+        stats[name] = dict(wall_s=walls, kmers=one["kmers"],
+                           kmers_per_s=one["kmers"] / max(walls),
+                           route_bytes=one["route_bytes"],
+                           peak_bytes=[r["peak_bytes"] for r in runs],
+                           launches=[r["launches"] for r in runs],
+                           one_process_wall_s=one["wall_s"])
+        say(f"phase 15 {name} ({stats['smi']}): {one['kmers']} kmers, walls "
+            f"{' / '.join(f'{w:.3f}' for w in walls)} s by process = "
+            f"{one['kmers'] / max(walls):.4g} kmers/s (one process: "
+            f"{one['wall_s']:.3f} s), route_bytes {one['route_bytes']}, "
+            f"peak device memory "
+            f"{' / '.join(f'{r["peak_bytes"] / 2**20:.1f}' for r in runs)} "
+            f"MiB by process, overflow 0, shard tables == phase 14's; "
+            f"launches by process {[r['launches'] for r in runs]}")
+
+    # the dry run: one process of four shards, then two ranks of two
+    one_dir = os.path.join(workdir, "dryrun_one")
+    mp_dir = os.path.join(workdir, "dryrun_mp")
+    os.makedirs(one_dir, exist_ok=True)
+    one = dryrun.run(make_mesh(devices=[DEVICE] * d), seed, one_dir)
+    reports = finish_ranks(spawn_ranks(
+        [sys.executable, "-m", "kmers_tpu_torch.dryrun", "--device", DEVICE,
+         "--local-shards", str(MULTIPROCESS["local_shards"]), "--backend",
+         "gloo", "--timeout", str(MULTIPROCESS["group_timeout"]), "--seed",
+         str(seed), "--out", mp_dir], workdir, "phase15_dryrun"),
+        "phase 15 dryrun")
+    for rank, rep in enumerate(reports):
+        if (rep["checks"] != one["checks"]
+                or rep["digests"] != {str(k): v
+                                      for k, v in one["digests"].items()}):
+            raise AssertionError(f"dryrun rank {rank}: checks {rep['checks']}"
+                                 f" or digests differ from one process's")
+        with np.load(os.path.join(mp_dir, f"dryrun.rank{rank}.npz")) as z:
+            if sorted(z.files) != sorted(one["arrays"]) or any(
+                    not np.array_equal(z[n], one["arrays"][n])
+                    for n in z.files):
+                raise AssertionError(f"dryrun rank {rank}: arrays differ from "
+                                     "the one-process dry run's")
+    say(f"phase 15 dryrun: two ranks of {MULTIPROCESS['local_shards']} "
+        f"shards on {DEVICE} over gloo: {len(one['checks'])} checks passed "
+        f"on each, arrays and checkpoints == one process of {d} shards; "
+        f"launches by process {[r['launches'] for r in reports]}; phase "
+        f"15 took {time.time() - t_phase:.1f}s")
+
+
+def worker_main(args) -> int:
+    """One rank of phase 15 (`chip_smoke.py --worker ...`, spawned by
+    phase_multiprocess): joins the gloo process group, builds the global
+    mesh of MULTIPROCESS["local_shards"] shards a process on args.device,
+    runs MULTIPROCESS["runs"] and phase 14's sequence-parallel steps, and
+    prints its report as one JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    from kmers_tpu_torch import kernels
+    from kmers_tpu_torch.io import fastx
+    from kmers_tpu_torch.parallel import mesh as mesh_ops
+    from kmers_tpu_torch.parallel import pipeline
+    from kmers_tpu_torch.parallel.stream import (ShardedStreamingCounter,
+                                                 auto_merge_every,
+                                                 npz_digest,
+                                                 pending_table_lanes)
+
+    mesh_ops.init_distributed(args.init, args.world, args.rank,
+                              backend="gloo",
+                              timeout=MULTIPROCESS["group_timeout"])
+    try:
+        mesh = mesh_ops.make_mesh(
+            devices=[args.device] * MULTIPROCESS["local_shards"])
+        d = mesh.n_shards
+        fastq = os.path.join(args.workdir, "ecoli_1m.fastq")
+        capacity, batch, length = 1 << 24, 4096, 256
+        report = {"rank": mesh.process_index, "runs": {}}
+
+        def start():
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            return time.time()
+
+        def finish(t0) -> dict:
+            sync()
+            return dict(wall_s=time.time() - t0,
+                        peak_bytes=torch.cuda.max_memory_allocated(),
+                        launches={n: c for n, c in
+                                  kernels.launch_counts().items() if c})
+
+        for partition, k, route_capacity in MULTIPROCESS["runs"]:
+            name = f"multiprocess_{partition}_d{d}_k{k}"
+            merge_every = auto_merge_every(capacity, pending_table_lanes(
+                batch, length, devices=d, route_capacity=route_capacity,
+                partition=partition, k=k, minimizer_w=11))
+            out = os.path.join(args.workdir, f"ecoli_1m_{name}.rank"
+                               f"{mesh.process_index}.npz")
+            t0 = start()
+            sc = ShardedStreamingCounter(
+                k, capacity, merge_every=merge_every, mesh=mesh,
+                route_capacity=route_capacity, partition=partition,
+                minimizer_w=11)
+            if partition == "minimizer":
+                for rows in fastx.prefetch(fastx.read_kmer_batches(
+                        fastq, k=k, batch=batch, length=length)):
+                    sc.update(rows[mesh_ops.local_read_slice(rows.shape[0])])
+            else:
+                for words, vbits in fastx.prefetch(fastx.read_packed_batches(
+                        fastq, k=k, batch=batch, length=length)):
+                    sl = mesh_ops.local_read_slice(words.shape[0])
+                    sc.update_packed(words[sl], vbits[sl])
+            sc.save(out)
+            run = finish(t0)
+            run.update(kmers=sc.kmers, route_overflow=sc.route_overflow,
+                       route_bytes=sc.route_bytes, merge_every=merge_every,
+                       digest=npz_digest(out))
+            report["runs"][name] = run
+
+        part = seq_parallel_genome(args.seed, args.genome)[
+            mesh_ops.local_read_slice(args.genome)]
+        seq = torch.from_numpy(part).to(args.device)
+        for k in SEQ_PARALLEL["ks"]:
+            name = f"multiprocess_sequence_parallel_d{d}_k{k}"
+            step = pipeline.make_sequence_parallel_counter(
+                mesh, k, route_capacity=seq_parallel_capacity(args.genome))
+            t0 = start()
+            res = step(seq)
+            run = finish(t0)
+            run.update(kmers=int(res.metrics["kmers_emitted"]),
+                       route_overflow=int(res.metrics["route_overflow"]),
+                       tables_digest=shard_tables_digest(res.table, mesh))
+            report["runs"][name] = run
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+def seq_parallel_genome(seed: int, g: int):
+    """Phase 14's sequence: the seeded [g] genome the reads come from, Ns
+    at and beside each of the four shards' cuts."""
+    from kmers_tpu_torch.io import simulate
+
+    seq = simulate.genome(g, seed)
+    cut = g // SEQ_PARALLEL["shards"]
+    for c in range(cut, g, cut):
+        for off in SEQ_PARALLEL["n_offsets"]:
+            seq[c + off] = ord("N")
+    return seq
+
+
+def seq_parallel_capacity(g: int) -> int:
+    """An even share of a shard's windows a destination, plus a margin."""
+    shards = SEQ_PARALLEL["shards"]
+    return int(SEQ_PARALLEL["margin"] * (g // shards) / shards)
+
+
+def shard_tables_digest(tables, mesh) -> str:
+    """sha256 over every shard's table of a sharded result (the whole
+    mesh's, gathered across processes; npz_digest's order and fields):
+    equal digests mean equal shard tables, lane for lane."""
+    import hashlib
+
+    import numpy as np
+
+    from kmers_tpu_torch.dryrun import shard_arrays
+
+    arrays = shard_arrays("shard", tables, mesh)
+    h = hashlib.sha256()
+    for name in sorted(arrays):
+        a = np.ascontiguousarray(arrays[name])
+        h.update(f"{name}\0{a.dtype.str}\0{a.shape}\0".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
 
 
 @contextlib.contextmanager
@@ -1795,6 +2129,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--workdir", default=os.path.join(ROOT, "build", "smoke"))
+    # one rank of phase 15, which spawns it: --worker --rank R --world P
+    # --init URL (and the device and genome length phase 15 runs at)
+    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    for name, kind in (("--rank", int), ("--world", int), ("--init", str),
+                       ("--device", str), ("--genome", int)):
+        ap.add_argument(name, type=kind, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -1804,6 +2144,9 @@ def main(argv=None) -> int:
               "a CUDA card", file=sys.stderr)
         return 1
     import kmers_tpu_torch  # noqa: F401  (fails outside a checkout)
+
+    if args.worker:
+        return worker_main(args)
 
     os.makedirs(args.workdir, exist_ok=True)
     stats = {"kernels": {}, "launches": {}, "profiled": {}}
@@ -1821,6 +2164,7 @@ def main(argv=None) -> int:
     phase_reference(stats, args.workdir, ks=(32, 64), phase=10)
     phase_sharded_compact(stats, args.workdir)
     phase_sharded_wide(stats, args.workdir, args.seed)
+    phase_multiprocess(stats, args.workdir, args.seed)
     phase_lookup(stats, args.seed, args.workdir)
     phase_sort_call(sort_inputs)
     phase_profiled(stats)

@@ -5,8 +5,10 @@ one per shard, with a halo exchange (counterpart of
 A k-mer window that spans a cut needs the first k-1 bases of the right
 neighbour's block.  Each shard's block is extended by that prefix
 (``mesh.shift_left``, where the JAX package sends it with a
-``ppermute``); the last shard's halo is zero bytes, which are invalid
-ASCII, so the ordinary N masking drops the windows past the global end.
+``ppermute``; on a multi-process mesh the first block of process p + 1
+extends the last of process p); the last shard's halo is zero bytes,
+which are invalid ASCII, so the ordinary N masking drops the windows past
+the global end.
 
 A block shorter than k-1 bases ships all of itself, as in the JAX
 package: the halo then holds fewer than k-1 bases, and a window that
@@ -24,9 +26,9 @@ from . import mesh as mesh_ops
 
 
 def halo_exchange(blocks: Sequence[torch.Tensor], halo: int, mesh) -> list:
-    """Each shard's [L] ASCII block extended by the next shard's first
-    `halo` bytes (all L of them when L < halo): [L + min(halo, L)] per
-    shard, zero bytes on the last one."""
+    """Each local shard's [L] ASCII block extended by the next global
+    shard's first `halo` bytes (all L of them when L < halo):
+    [L + min(halo, L)] per shard, zero bytes on the mesh's last one."""
     nbr = mesh_ops.shift_left([b[..., :halo] for b in blocks], mesh)
     return [torch.cat([b, n], -1) for b, n in zip(blocks, nbr)]
 
@@ -45,9 +47,9 @@ def _sharded(blocks, k: int, mesh, windows, wrap) -> list:
 
 def sharded_windows(blocks: Sequence[torch.Tensor], k: int, mesh) -> list:
     """All k-mer windows (k <= 32) of a sequence split into one [L] uint8
-    block per shard: one KmerWindows per shard over its extended block,
-    shape [1, L + halo]; window p < L is the k-mer starting at global
-    position shard * L + p."""
+    block per local shard: one KmerWindows per local shard over its
+    extended block, shape [1, L + halo]; window p < L is the k-mer starting
+    at global position shard * L + p (shard the global index)."""
     return _sharded(blocks, k, mesh, kmer.kmer_windows, kmer.KmerWindows)
 
 

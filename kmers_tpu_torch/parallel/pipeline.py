@@ -33,8 +33,10 @@ A batch becomes one table, in the form `aggregate` names (default from
                   source-index plane, K4), and carried home;
                   lookup_sharded looks each query up in its owner's table.
 
-A sharded step returns one table per shard (on its device) and its
-metrics summed over the shards on the mesh's first device.
+A sharded step takes this process's rows and returns one table per local
+shard (on its device) and its metrics summed over every shard of the
+mesh, every process's, on the mesh's first local device
+(parallel.mesh: one process, or several over torch.distributed).
 """
 
 from __future__ import annotations
@@ -211,9 +213,20 @@ def count_reads_packed_wide(words: torch.Tensor, validbits: torch.Tensor,
 
 # -- sharded counting: hash-prefix routing -------------------------------------
 
-def _psum(values, device) -> torch.Tensor:
-    """The sum of one scalar tensor per shard, on `device`."""
-    return mesh_ops.gather(values, device).sum()
+def _psums(mesh, per_shard, rows: Optional[int] = None) -> list:
+    """Each list of per_shard (one scalar tensor per local shard) summed
+    over every shard of the mesh, all through one psum.  With rows (this
+    process's batch rows), the rows of every process come last: rows
+    itself on one process, else summed in the same collective."""
+    multi = rows is not None and mesh.process_count > 1
+    vecs = []
+    for s, vals in enumerate(zip(*per_shard)):
+        if multi:
+            vals += (torch.full((), rows if s == 0 else 0, dtype=torch.int64,
+                                device=vals[0].device),)
+        vecs.append(torch.stack(vals))
+    sums = list(mesh_ops.psum(vecs, mesh).unbind())
+    return sums + [rows] if rows is not None and not multi else sums
 
 
 def _check_sharded(aggregate: str, k: int, what: str, lo: int = 1,
@@ -244,20 +257,23 @@ def _sharded_count_tail(canon, valid, n_reads: int, n_win: int, mesh,
                         k: int, capacity: int, seed: int, passes: int,
                         aggregate: str) -> CountResult:
     """Shared tail of the sharded count bodies: route (route_wide past
-    k = 32), then each shard's table of the lanes it received."""
+    k = 32), then each local shard's table of the lanes it received.
+    n_reads counts this process's rows; the metrics are global."""
     wide = k > WORD_K
     route = route_ops.route_wide if wide else route_ops.route
     routed = route(canon, valid, mesh, capacity, seed, passes=passes)
-    dev = mesh[0]
-    emitted = _psum([v.sum() for v in valid], dev)
+    emitted, overflow, rerouted, reads = _psums(
+        mesh, ([v.sum() for v in valid], [r.overflow for r in routed],
+               [r.rerouted for r in routed]), rows=n_reads)
     metrics = {
-        "reads": n_reads,
+        "reads": reads,
         "kmers_emitted": emitted,
-        "windows_skipped": n_reads * n_win - emitted,
-        "route_overflow": _psum([r.overflow for r in routed], dev),
-        "route_rerouted": _psum([r.rerouted for r in routed], dev),
-        # an 8 B (16 B wide) word + 1 B mask per received lane
-        "route_bytes": sum(r.valid.numel() for r in routed)
+        "windows_skipped": reads * n_win - emitted,
+        "route_overflow": overflow,
+        "route_rerouted": rerouted,
+        # an 8 B (16 B wide) word + 1 B mask per lane, each of the D
+        # shards receiving as many
+        "route_bytes": mesh.n_shards * routed[0].valid.numel()
         * (17 if wide else 9),
     }
     return CountResult([_shard_table(r.words, r.valid, k, aggregate)
@@ -274,8 +290,8 @@ def _windows_tail(wins, n_reads: int, **kw) -> CountResult:
 
 
 def _sharded_count_body(reads_local, **kw) -> CountResult:
-    """Each shard's [B/D, L] reads -> plain windows -> routed -> owned
-    tables."""
+    """Each local shard's [B/D, L] reads -> plain windows -> routed ->
+    owned tables."""
     windows = (kmer.kmer_windows_wide if kw["k"] > WORD_K
                else kmer.kmer_windows)
     return _windows_tail([windows(r, kw["k"]) for r in reads_local],
@@ -295,6 +311,7 @@ def _sharded_count_body_packed(words_local, validbits_local,
 def _sharded_counter(mesh, k: int, route_capacity: int, seed: int,
                      route_passes: int, packed: bool, aggregate: str):
     body = _sharded_count_body_packed if packed else _sharded_count_body
+    mesh = mesh_ops.as_mesh(mesh)
 
     def fn(*batch) -> CountResult:
         return body(*(mesh_ops.batch_sharding(x, mesh) for x in batch),
@@ -309,10 +326,13 @@ def make_sharded_counter(mesh, k: int, *, route_capacity: int, seed: int = 0,
                          aggregate: str = "compact"):
     """A sharded counting step over `mesh` (k <= 32): fn(reads [B, L]
     uint8), or fn(words [B, L/16], validbits [B, L/32]) with packed=True,
-    -> CountResult with one table per shard, holding only the k-mers that
-    shard owns (compact by default, K11's sort on the card at k <= 31;
-    the routed lanes themselves for aggregate="unit", k <= 31), and
-    metrics summed over the shards.  B must split evenly over the mesh.
+    -> CountResult with one table per local shard, holding only the k-mers
+    that shard owns (compact by default, K11's sort on the card at
+    k <= 31; the routed lanes themselves for aggregate="unit", k <= 31),
+    and metrics summed over every shard.  The batch is this process's
+    rows (all of them on a one-process mesh; its local_read_slice, or
+    make_global_array's value, on a multi-process one), and B must split
+    evenly over its local shards.
     The windows are the plain ones of ops.kmer on every device, as in the
     JAX package (pipeline.py:224-243).  At k = 32 "runlength" gives the
     compact table too, as in the JAX package (pipeline.py:206-209).
@@ -340,13 +360,47 @@ def make_sharded_counter_wide(mesh, k: int, *, route_capacity: int,
                             packed, aggregate)
 
 
-def global_table(result: CountResult) -> count_ops.CountTable:
+def gather_tables(tables, mesh):
+    """One step's per-local-shard tables (one form and shape) as one table
+    on mesh[0] holding every shard's, each plane stacked [D, ...] in
+    global shard order (across processes an all_gather, so that every
+    process holds the same stack): unit tables (narrow or wide) for the
+    streaming merge, compact ones for merge_many, which reads [D, cap]
+    shard tables as the JAX package's does."""
+    mesh = mesh_ops.as_mesh(mesh)
+    t = tables[0]
+    keys = tuple(mesh_ops.gather([s.keys[i] for s in tables], mesh)
+                 for i in range(len(t.keys)))
+    if isinstance(t, UnitTable):
+        return UnitTable(*keys)
+    if isinstance(t, UnitTableWide):
+        return UnitTableWide(keys)
+    n_unique = sum(s.n_unique for s in tables)
+    if mesh.process_count > 1:
+        n_unique = int(mesh_ops.psum(
+            [torch.full((), n_unique, dtype=torch.int64, device=mesh[0])],
+            mesh))
+    return count_ops.make_table(
+        keys, mesh_ops.gather([s.counts for s in tables], mesh), n_unique)
+
+
+def global_table(result: CountResult, mesh=None) -> count_ops.CountTable:
     """One key-sorted CountTable from a sharded result's per-shard tables
     of any form, on the first shard's device: merge_many's weighted
     re-count (kmers_tpu/parallel/pipeline.py:299-313).  It re-counts
     across shards, so it is exact for the minimizer partition too, whose
-    shards are not key-disjoint."""
-    return count_ops.merge_many(result.table)
+    shards are not key-disjoint.  A multi-process result holds this
+    process's shards only: pass its mesh, and every process's tables are
+    gathered (a collective: every process calls it) and every process
+    gets the whole table.  Under a process group without a mesh it
+    raises rather than merge a part."""
+    tables = result.table
+    if mesh is not None and mesh_ops.as_mesh(mesh).process_count > 1:
+        tables = [gather_tables(tables, mesh)]
+    elif mesh is None and mesh_ops.process_count() > 1:
+        raise ValueError("global_table of a multi-process result needs its "
+                         "mesh (the other processes hold the other shards)")
+    return count_ops.merge_many(tables)
 
 
 # -- sequence-parallel counting (one long sequence) ---------------------------
@@ -356,17 +410,23 @@ def make_sequence_parallel_counter(mesh, k: int, *, route_capacity: int,
     """Count the k-mers of ONE long sequence split contiguously over
     `mesh` (kmers_tpu/parallel/pipeline.py:509-556): fn(seq [G] uint8
     ASCII, G divisible by the number of shards) -> CountResult with, per
-    shard, the compact table of the k-mers it owns (count_words, K11's
-    sort on the card at k <= 31; count_words_wide past k = 32) and metrics
-    kmers_emitted, route_overflow, route_rerouted.  Each shard windows
-    its block extended by the halo (halo.sharded_windows), and the
-    canonical words route as make_sharded_counter's do."""
+    local shard, the compact table of the k-mers it owns (count_words,
+    K11's sort on the card at k <= 31; count_words_wide past k = 32) and
+    metrics kmers_emitted, route_overflow, route_rerouted.  Each shard
+    windows its block extended by the halo (halo.sharded_windows), and the
+    canonical words route as make_sharded_counter's do.  On a
+    multi-process mesh, seq is this process's contiguous part of the
+    sequence, G / P bases (process p's the p-th), or make_global_array's
+    value of it."""
     check_k_range(k, 1, MAX_WIDE_K, "make_sequence_parallel_counter")
+    mesh = mesh_ops.as_mesh(mesh)
     windows = (halo_ops.sharded_windows_wide if k > WORD_K
                else halo_ops.sharded_windows)
 
-    def fn(seq: torch.Tensor) -> CountResult:
-        blocks = mesh_ops.batch_sharding(seq.reshape(-1), mesh)
+    def fn(seq) -> CountResult:
+        if isinstance(seq, torch.Tensor):
+            seq = seq.reshape(-1)
+        blocks = mesh_ops.batch_sharding(seq, mesh)
         res = _windows_tail(windows(blocks, k, mesh), 1, mesh=mesh, k=k,
                             capacity=route_capacity, seed=seed,
                             passes=route_passes, aggregate="compact")
@@ -524,11 +584,13 @@ def make_superkmer_counter(mesh, k: int, w: int, *, route_capacity: int,
     check_k_range(w, 1, k, "make_superkmer_counter (w)")
     nwords, meta_off, fold = _superkmer_layout(k, w)
     n_planes = nwords if fold else nwords + 1
-    d = len(mesh)
+    mesh = mesh_ops.as_mesh(mesh)
+    d = mesh.n_shards
 
-    def fn(reads: torch.Tensor) -> CountResult:
+    def fn(reads) -> CountResult:
         owners, starts, planes, kmers, n_sk, cap_dropped = ([] for _ in range(6))
-        for r in mesh_ops.batch_sharding(reads, mesh):
+        blocks = mesh_ops.batch_sharding(reads, mesh)
+        for r in blocks:
             owner, start, pl, km = emit_superkmers(r, k, w, seed)
             n_sk.append(start.sum())
             kmers.append(km)
@@ -549,20 +611,19 @@ def make_superkmer_counter(mesh, k: int, w: int, *, route_capacity: int,
             fw, wv = expand_superkmers(rp.planes, rp.valid, k, w)
             canon = kmer.canonical_word(fw, u64.reverse_complement(fw, k))
             tables.append(_shard_table(canon, wv, k, aggregate))
-        dev = mesh[0]
-        emitted = _psum(kmers, dev)
-        n_reads = reads.shape[0]
-        overflow = _psum([rp.overflow_weight for rp in routed] + cap_dropped,
-                         dev)
+        emitted, overflow, n_superkmers, rerouted, n_reads = _psums(
+            mesh, (kmers, [rp.overflow_weight + dw for rp, dw in zip(
+                routed, cap_dropped)], n_sk, [rp.rerouted for rp in routed]),
+            rows=sum(b.shape[0] for b in blocks))
         metrics = {
             "reads": n_reads,
             "kmers_emitted": emitted,
-            "windows_skipped": n_reads * (reads.shape[-1] - k + 1) - emitted,
-            "superkmers": _psum(n_sk, dev),
+            "windows_skipped": n_reads * (blocks[0].shape[-1] - k + 1)
+            - emitted,
+            "superkmers": n_superkmers,
             "route_overflow": overflow,
-            "route_rerouted": _psum([rp.rerouted for rp in routed], dev),
-            "route_bytes": sum(rp.valid.numel() for rp in routed)
-            * (4 * n_planes + 1),
+            "route_rerouted": rerouted,
+            "route_bytes": d * routed[0].valid.numel() * (4 * n_planes + 1),
         }
         return CountResult(tables, metrics)
 
@@ -589,6 +650,7 @@ def make_sharded_minimizer_counter(mesh, k: int, w: int, *,
     check_k_range(w, 1, k, "make_sharded_minimizer_counter (w)")
     hash_fn = (hash_ops.lex_hash_fn(w) if use_lex
                else hash_ops.mix_hash_fn(seed))
+    mesh = mesh_ops.as_mesh(mesh)
 
     def fn(reads: torch.Tensor) -> CountResult:
         mms = [mini_ops.minimizer_stream(r, k, w, hash_fn)
@@ -596,12 +658,11 @@ def make_sharded_minimizer_counter(mesh, k: int, w: int, *,
         routed = route_ops.route([m.word for m in mms],
                                  [m.valid for m in mms], mesh,
                                  route_capacity, seed, passes=route_passes)
-        dev = mesh[0]
-        metrics = {
-            "kmers_emitted": _psum([m.valid.sum() for m in mms], dev),
-            "route_overflow": _psum([r.overflow for r in routed], dev),
-            "route_rerouted": _psum([r.rerouted for r in routed], dev),
-        }
+        emitted, overflow, rerouted = _psums(
+            mesh, ([m.valid.sum() for m in mms], [r.overflow for r in routed],
+                   [r.rerouted for r in routed]))
+        metrics = {"kmers_emitted": emitted, "route_overflow": overflow,
+                   "route_rerouted": rerouted}
         return CountResult([count_ops.count_words(r.words, r.valid, max_k=w)
                             for r in routed], metrics)
 
@@ -616,19 +677,23 @@ def make_sharded_lookup(mesh, *, query_capacity: int, seed: int = 0,
     """A query step over per-shard count tables: fn(tables, queries,
     valid) -> (counts int32 [Q] on mesh[0], overflow), counts aligned
     with the queries, -1 where a query was invalid or overflowed its
-    sender's query_capacity lanes to its owner.
+    sender's query_capacity lanes to its owner; overflow summed over
+    every shard.
 
-    tables: one compact CountTable per shard, on its device, holding the
-    keys that shard owns by hash (make_sharded_counter's tables);
-    queries int64 [Q] and valid bool [Q] split over the mesh
-    (mesh.batch_sharding).  route_queries takes each query to its owner,
-    which answers by count.lookup_merge (merge_lookup=True) or
+    tables: one compact CountTable per local shard, on its device,
+    holding the keys that shard owns by hash (make_sharded_counter's
+    tables); queries int64 [Q] and valid bool [Q], this process's (on a
+    multi-process mesh each process answers its own queries, on its first
+    local device), split over its local shards (mesh.batch_sharding).
+    route_queries takes each query to its owner, which answers by
+    count.lookup_merge (merge_lookup=True) or
     count.lookup's binary search (False, and None: on the CPU as the JAX
     package off a TPU, and on the card because chip_smoke.py's phase 13
     measured it faster at both of its shapes; PERF.md section 6),
     and the answers ride home.  merge_lookup=True with max_k > 31 raises,
     where the JAX package answers wrongly: the merge keys on bit 63."""
     use_merge = bool(merge_lookup)
+    mesh = mesh_ops.as_mesh(mesh)
     if use_merge and max_k is not None and max_k > NARROW_MAX_K:
         raise ValueError(f"merge_lookup takes k <= {NARROW_MAX_K} keys, "
                          f"max_k={max_k}")
@@ -644,9 +709,8 @@ def make_sharded_lookup(mesh, *, query_capacity: int, seed: int = 0,
             else:
                 got = count_ops.lookup(table, r.words)
             answers.append(torch.where(r.valid, got, -1))
-        dev = mesh[0]
-        counts = torch.cat([c.to(dev) for c in reply(answers)])
-        return counts, _psum([r.overflow for r in routed], dev)
+        counts = torch.cat([c.to(mesh[0]) for c in reply(answers)])
+        return counts, mesh_ops.psum([r.overflow for r in routed], mesh)
 
     return fn
 
@@ -657,7 +721,10 @@ def lookup_sharded(tables, queries: torch.Tensor, n_shards: int,
     table (route.owner_of) among per-shard tables, on the queries' device
     (kmers_tpu/parallel/pipeline.py:316-336).  Over the minimizer
     partition's shard tables, which are not key-disjoint, a count is only
-    the owner's part, as in the JAX package: look up global_table there."""
+    the owner's part, as in the JAX package: look up global_table there.
+    It takes every shard's table, so a multi-process result's (this
+    process's shards only) raises for the count: make_sharded_lookup
+    routes the queries to their owners across processes instead."""
     if len(tables) != n_shards:
         raise ValueError(f"{len(tables)} tables for {n_shards} shards")
     owner = route_ops.owner_of(queries, n_shards, seed)

@@ -21,9 +21,12 @@ lanes shipped in passes >= 2 are counted too (``rerouted``).
 ``route_payload`` routes planes: a stable owner sort, the owner taken
 from the words' mix hash.  ``route_queries`` is the lookup service's
 round trip: one pass out, and the answers carried back to the senders'
-lanes.  Every function takes one tensor per shard (a list in mesh
-order) and returns one result per shard: the senders' phase runs for
-every shard, then the exchange, then the receivers' phase.
+lanes.  Every function takes one tensor per local shard (a list in mesh
+order) and returns one result per local shard: the senders' phase runs
+for every local shard, then the exchange (across processes on a
+multi-process mesh), then the receivers' phase.  Owners are taken modulo
+the global shard count D (mesh.n_shards); overflow and rerouted are each
+local sender's own.
 """
 
 from __future__ import annotations
@@ -159,16 +162,15 @@ def _exchange(sorted_planes: Sequence[Sequence[torch.Tensor]],
               passes: int):
     """The shared body of route and route_payload, after each sender's
     owner sort: per pass, one all_to_all of every sender's stacked planes
-    and mask.  Returns, per shard, (received planes, received valid,
-    overflow, rerouted); received lanes run pass, sender, lane."""
-    d = len(mesh)
+    and mask.  Returns, per local shard, (received planes, received valid,
+    overflow, rerouted); received lanes run pass, global sender, lane."""
     senders = [_bucket_sends(planes, cnt, capacity, passes)
                for planes, cnt in zip(sorted_planes, counts)]
-    recv = [[] for _ in range(d)]
+    recv = [[] for _ in senders]
     for p in range(passes):
         got = mesh_ops.all_to_all([send_at(p) for send_at in senders], mesh)
-        for r in range(d):
-            recv[r].append(got[r])
+        for r, g in enumerate(got):
+            recv[r].append(g)
     n_planes = len(sorted_planes[0])
     out = []
     for r, cnt in enumerate(counts):
@@ -188,7 +190,8 @@ def route(words: Sequence[torch.Tensor], valid: Sequence[torch.Tensor], mesh,
     each shard receives passes * D * capacity lanes, exact while every
     bucket holds <= passes * capacity lanes.  The wire carries the mixed
     words; receivers unmix them.  Returns one Routed per shard."""
-    d = len(mesh)
+    mesh = mesh_ops.as_mesh(mesh)
+    d = mesh.n_shards
     sorted_words, counts = [], []
     for w, v in zip(words, valid):
         s, _, _, cnt = bucket_sort(w.reshape(-1), v.reshape(-1), d, seed)
@@ -223,7 +226,8 @@ def route_payload(owner_words: Sequence[torch.Tensor],
     (>> weight_shift, & weight_mask, read as uint32) over dropped lanes,
     e.g. the k-mers of each dropped super-k-mer.  Returns one
     RoutedPlanes per shard."""
-    d = len(mesh)
+    mesh = mesh_ops.as_mesh(mesh)
+    d = mesh.n_shards
     sorted_planes, counts, weights = [], [], []
     for ow, v, pl in zip(owner_words, valid, planes):
         v = v.reshape(-1)
@@ -256,7 +260,8 @@ def route_wide(words: Sequence[tuple], valid: Sequence[torch.Tensor], mesh,
     lanes last, carries the words themselves, so received lanes run pass,
     sender, lane as in the JAX package.  capacity, passes, overflow and
     rerouted as in `route`.  Returns one RoutedWide per shard."""
-    d = len(mesh)
+    mesh = mesh_ops.as_mesh(mesh)
+    d = mesh.n_shards
     sorted_words, counts = [], []
     for (hi, lo), v in zip(words, valid):
         hi, lo, v = hi.reshape(-1), lo.reshape(-1), v.reshape(-1)
@@ -295,7 +300,8 @@ def route_queries(words: Sequence[torch.Tensor], valid: Sequence[torch.Tensor],
     lane, or it falls out of the valid prefix.  Answers come home by a
     scatter to the positions (JAX's union sort): each position is
     answered at most once, so the arrays are the same."""
-    d = len(mesh)
+    mesh = mesh_ops.as_mesh(mesh)
+    d = mesh.n_shards
     sends, homes, overflow = [], [], []
     for w, v in zip(words, valid):
         shape = w.shape

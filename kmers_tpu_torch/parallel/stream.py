@@ -257,7 +257,9 @@ class StreamingCounter:
         truncated checkpoint."""
         self._consolidate()
         final = path if path.endswith(".npz") else path + ".npz"
-        tmp = final + ".tmp.npz"
+        # one temp file per process: the processes of a multi-process
+        # counter each write the same table
+        tmp = f"{final}.{os.getpid()}.tmp.npz"
         np.savez(
             tmp,
             k=np.int64(self.k),
@@ -302,14 +304,26 @@ class ShardedStreamingCounter(StreamingCounter):
     route_rerouted) and committed with the merge, as are the super-k-mer
     count and the wire bytes of the send buffers (route_superkmers,
     route_bytes); raise route_capacity or route_passes until
-    route_overflow is 0 for exact tables."""
+    route_overflow is 0 for exact tables.
+
+    Over a multi-process mesh (kmers_tpu/parallel/stream.py:437-574) every
+    process builds the counter over the same global mesh and feeds
+    update / update_packed its own rows of each batch (local_read_slice),
+    the same number of times; a consolidation gathers the pending shard
+    tables of every process, so each merges the same stack and holds the
+    same table (JAX's replicated table), and the committed counters are
+    global.  save, to_pairs and lookup consolidate first, so every process
+    calls them, and each save writes the whole table, as the JAX
+    package's does on every process."""
 
     def __init__(self, k, capacity: int, merge_every: int = 16, *,
                  mesh=None, n_devices: Optional[int] = None,
                  route_capacity: int = 4096, route_passes: int = 1,
                  seed: Optional[int] = None, partition: str = "hash",
                  minimizer_w: Optional[int] = None):
-        mesh = mesh if mesh is not None else mesh_ops.make_mesh(n_devices)
+        mesh = (mesh_ops.as_mesh(mesh) if mesh is not None
+                else mesh_ops.make_mesh(n_devices))
+        # the table lives on the first local device of every process
         super().__init__(k, capacity, merge_every, device=mesh[0])
         if partition not in ("hash", "minimizer"):
             raise ValueError(f"partition must be 'hash' or 'minimizer', "
@@ -321,7 +335,7 @@ class ShardedStreamingCounter(StreamingCounter):
         if minimizer_w is None:
             minimizer_w = self.spec.w if self.spec.w is not None else 11
         self.mesh = mesh
-        self.n_devices = len(mesh)
+        self.n_devices = mesh.n_shards
         self.route_capacity = route_capacity
         self.route_passes = route_passes
         self.partition = partition
@@ -343,8 +357,11 @@ class ShardedStreamingCounter(StreamingCounter):
             self._scount_packed = mk(mesh, self.k, packed=True, **route)
 
     def _pad_rows(self, t: torch.Tensor, fill: int) -> torch.Tensor:
-        """Pad a batch with `fill` rows so that it splits over the mesh."""
-        short = -t.shape[0] % self.n_devices
+        """Pad this process's rows with `fill` rows so that they split over
+        its local shards (kmers_tpu/parallel/stream.py:518-526); an empty
+        slice becomes one row a shard, since every process steps."""
+        n = self.mesh.n_local
+        short = -t.shape[0] % n if t.shape[0] else n
         if not short:
             return t
         filler = torch.full((short,) + tuple(t.shape[1:]), fill,
@@ -376,8 +393,9 @@ class ShardedStreamingCounter(StreamingCounter):
         self._pending_overflow = []
 
     def _consolidate(self) -> None:
-        # gather each pending batch's shard tables to the table's device
-        self._pending = [_gather_shards(p, self.device)
+        # gather each pending batch's shard tables, every process's, to
+        # the table's device
+        self._pending = [pipeline.gather_tables(p, self.mesh)
                          if isinstance(p, list) else p for p in self._pending]
         super()._consolidate()
         # the overflow counters commit only after the merge succeeded (it
@@ -390,23 +408,6 @@ class ShardedStreamingCounter(StreamingCounter):
             if sk is not None:
                 self.route_superkmers += int(sk)
         self._pending_overflow = []
-
-
-def _gather_shards(tables, device):
-    """One batch's per-shard tables (one form and shape) as one table on
-    `device`, every plane stacked [D, ...]: unit tables (narrow or wide)
-    for the streaming merge, compact ones (k = 32, 64) for merge_many,
-    which reads [D, cap] shard tables as the JAX package's does."""
-    t = tables[0]
-    keys = tuple(mesh_ops.gather([s.keys[i] for s in tables], device)
-                 for i in range(len(t.keys)))
-    if isinstance(t, count_ops.UnitTable):
-        return count_ops.UnitTable(*keys)
-    if isinstance(t, count_ops.UnitTableWide):
-        return count_ops.UnitTableWide(keys)
-    return count_ops.make_table(
-        keys, mesh_ops.gather([s.counts for s in tables], device),
-        sum(s.n_unique for s in tables))
 
 
 def auto_merge_every(capacity: int, batch_lanes: int) -> int:
@@ -446,7 +447,9 @@ def count_fastx(path: str, k: int, capacity: int, *, device,
     packed=True ships 2-bit words + validity bitmaps (needs length % 32 ==
     0, else ASCII rows; the minimizer partition always takes ASCII rows).
     devices > 1 shards the count over that many devices of `device`'s
-    kind (mesh.mesh_for)."""
+    kind (mesh.mesh_for).  One process, as in the JAX package: every
+    batch is the file's; a multi-process count feeds each process's
+    local_read_slice to update_packed by hand."""
     from ..io import fastx
 
     if merge_every <= 0:

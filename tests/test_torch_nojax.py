@@ -5,8 +5,9 @@ imports, and a tiny count runs on the CPU at k = 15 (on one device, and
 sharded over two CPU shards by hash and by minimizer), k = 32, k = 63 and
 k = 64 (k = 32 and 63 sharded over two CPU shards too); the sharded
 lookup service answers over two CPU shards at both
-of its arms.  The sources neither import nor name a path into
-``kmers_tpu/``."""
+of its arms; the multi-process mesh's functions import, and
+kmers_tpu_torch.dryrun runs every sharded pipeline over two CPU shards.
+The sources neither import nor name a path into ``kmers_tpu/``."""
 
 import ast
 import os
@@ -75,6 +76,13 @@ for k, flat in ((63, wide), (32, os.path.join(sys.argv[1], "k32.npz"))):
     assert main(["count", fq, "-k", str(k), "-o", sh, "--batch", "16",
                  "--length", "128", "--device", "cpu", "--devices", "2"]) == 0
     assert npz_digest(sh) == npz_digest(flat), k
+from kmers_tpu_torch import dryrun
+from kmers_tpu_torch.parallel.mesh import (
+    Mesh, ShardedRows, as_mesh, gather, init_distributed, local_read_slice,
+    make_global_array, process_count, process_index, psum)
+assert (process_count(), process_index(), local_read_slice(5)) == (
+    1, 0, slice(0, 5))
+assert len(dryrun.run(m2)["checks"]) == 12
 assert "kmers_tpu" not in sys.modules and "jax.numpy" not in sys.modules
 print("NOJAX-OK")
 """
