@@ -78,6 +78,20 @@ the exit code is non-zero):
      process, k-mers/s, route_bytes and peak memory by process beside the
      one-process D = 4 walls.  A worker that fails or runs past its
      timeout fails the phase.
+ 16. the parity surface outside counting (after 15, before 13 and 12):
+     the seeded genome of phase 3 into a SeqVector on the card by
+     from_bytes and by push_chars in chunks of 150,000 bases (the same
+     words); all_kmers at k=31 and 32 and minimizers at (31, 11) under the
+     mix and the lex hash, each equal to the same call on the CPU; the
+     canonical words of all_kmers(31) equal to kmer_windows' on the
+     genome as one row; the simple_sds bytes and the npz (npz_digest) equal
+     to the CPU's; a slice of the middle megabase reads the whole's
+     k-mers; the first 100,000 reads of phase 3's set, in batches of 4096,
+     through generic.encode_windows, decode and rev_comp at three specs
+     (u64 k=31 ACGT, u128 k=63 GTCA, u32 k=15 Xor10), each batch equal to
+     the CPU's; PARITY_DIGEST (pinned by the tests to kmers_tpu's CPU
+     output) recomputed on the card.  The walls of from_bytes,
+     all_kmers(31), minimizers(31, 11) and one encode_windows batch.
  13. the distributed lookup service (runs before phase 12, whose profiler
      would slow it), both answer arms of make_sharded_lookup (merge: K3
      with its source-index plane and K4; binary search): bench_configs.py
@@ -128,9 +142,6 @@ SIZES = dict(window=(4096, 256), window_odd=(1001, 288),
              merge=1 << 24,
              compress=1 << 25, reads=1_000_000, short_reads=100_000,
              genome=4_641_652, sort_big=1 << 24, odd=1_000_003)
-# the least time of a kernel: the bytes it must move (each input read
-# once, each output written once) at the H100 SXM's HBM3 rate, 3.35 TB/s
-HBM_BYTES_PER_MS = 3.35e12 / 1e3
 PROFILED_CALLS = 20                # calls phase 12 profiles a kernel over
 
 KERNEL_INFO = {
@@ -194,6 +205,11 @@ MULTIPROCESS = dict(processes=2, local_shards=2,
                           ("hash", 63, 1 << 15)),
                     group_timeout=300, spawn_timeout=600)
 WORKER_CMD = [sys.executable, os.path.abspath(__file__)]
+# phase 16: push_chars' chunk (bases), the k of all_kmers, the minimizer
+# (k, w), the slice of the genome's middle (bases), and the reads of phase
+# 3's set that go through the generic layer, in batches
+PARITY = dict(chunk=150_000, ks=(31, 32), minimizer=(31, 11),
+              slice_len=1_000_000, reads=100_000, batch=4096)
 # phase 13's lookups: bench_configs.py --lookup's table and queries on one
 # shard (:576-596), and phase 3's table split over four shards of 2^22
 # slots with 2^20 queries, 2^17 lanes a sender and destination
@@ -252,8 +268,13 @@ def nbytes(*tensors) -> int:
 
 
 def bound_ms(n_bytes: int) -> float:
-    """Least device time for moving n_bytes through HBM, in ms."""
-    return n_bytes / HBM_BYTES_PER_MS
+    """Least device time for moving n_bytes through HBM, in ms: the bytes
+    a kernel must move (each input read once, each output written once)
+    at the card's peak HBM rate (profiling.device_hbm_gbps: 3.35 TB/s on
+    the H100 SXM)."""
+    from kmers_tpu_torch import profiling
+
+    return n_bytes / (profiling.device_hbm_gbps() * 1e6)
 
 
 def max_abs_err(got, want) -> int:
@@ -1833,6 +1854,143 @@ def worker_main(args) -> int:
     return 0
 
 
+def _walled(walls: dict, name: str, fn):
+    """fn() once to warm up, then once between two syncs: its wall in
+    walls[name] (s); returns the timed call's result."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    walls[name] = time.perf_counter() - t0
+    return out
+
+
+def _equal(got, want, what: str) -> None:
+    """Tensors (or tuples of them) equal, element for element, on the CPU."""
+    import torch
+
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    if len(got) != len(want) or not all(
+            torch.equal(g.cpu(), w.cpu()) for g, w in zip(got, want)):
+        raise AssertionError(f"{what}: the card differs from the CPU")
+
+
+def phase_parity(stats: dict, seed: int, workdir: str) -> None:
+    """Phase 16: SeqVector and the generic layer on the card, each output
+    equal to the same call on the CPU, and PARITY_DIGEST."""
+    import numpy as np
+    import torch
+
+    from kmers_tpu_torch import smoke
+    from kmers_tpu_torch.io import simulate
+    from kmers_tpu_torch.ops import generic
+    from kmers_tpu_torch.ops import hash as khash
+    from kmers_tpu_torch.ops import kmer as kops
+    from kmers_tpu_torch.ops.seqvector import SeqVector
+    from kmers_tpu_torch.parallel.stream import npz_digest
+
+    t_phase = time.time()
+    genome = simulate.genome(SIZES["genome"], seed).tobytes()
+    walls = {}
+    sv = _walled(walls, "from_bytes",
+                 lambda: SeqVector.from_bytes(genome, device=DEVICE))
+    pushed = SeqVector.with_capacity(len(genome), device=DEVICE)
+    for i in range(0, len(genome), PARITY["chunk"]):
+        pushed.push_chars(genome[i:i + PARITY["chunk"]])
+    _equal(pushed.words, sv.words, "push_chars' words vs from_bytes'")
+    host = SeqVector.from_bytes(genome, device="cpu")
+    _equal(sv.words, host.words, "from_bytes")
+
+    kmers = {}
+    for k in PARITY["ks"]:
+        run = lambda k=k: sv.all_kmers(k)[0]
+        kmers[k] = (_walled(walls, f"all_kmers_{k}", run) if k == 31
+                    else run())
+        _equal(kmers[k], host.all_kmers(k)[0], f"all_kmers({k})")
+    k, w = PARITY["minimizer"]
+    for name, fn in (("mix", khash.mix_hash_fn(0)),
+                     ("lex", khash.lex_hash_fn(w))):
+        run = lambda fn=fn: sv.minimizers(k, w, fn)
+        got = _walled(walls, f"minimizers_{k}_{w}", run) if name == "mix" \
+            else run()
+        _equal(got, host.minimizers(k, w, fn), f"minimizers({k}, {w}) {name}")
+
+    # the canonical words of all_kmers(31), against the windows of the
+    # genome as one row (a path the tests hold against JAX)
+    g31 = kmers[31]
+    canon = kops.canonical_word(g31, kops.reverse_complement(g31, 31))
+    row = torch.from_numpy(np.frombuffer(genome, dtype=np.uint8).copy())
+    win = kops.kmer_windows(row.to(DEVICE)[None], 31)
+    n31 = g31.shape[0]
+    if not bool(win.valid[0, :n31].all()) or not torch.equal(
+            canon, kops.canonical_word(win.fw, win.rc)[0, :n31]):
+        raise AssertionError("all_kmers(31)'s canonical words differ from "
+                             "kmer_windows'")
+
+    blob = sv.to_simple_sds()
+    if blob != host.to_simple_sds():
+        raise AssertionError("simple_sds bytes differ from the CPU's")
+    paths = {d: os.path.join(workdir, f"parity_{d}.npz") for d in ("gpu", "cpu")}
+    sv.save(paths["gpu"])
+    host.save(paths["cpu"])
+    if npz_digest(paths["gpu"]) != npz_digest(paths["cpu"]):
+        raise AssertionError("the saved SeqVector differs from the CPU's")
+    _equal(SeqVector.load(paths["gpu"], device=DEVICE).words, sv.words,
+           "load(save())")
+
+    n = PARITY["slice_len"]
+    start = (len(genome) - n) // 2
+    part = sv.slice(start, start + n)
+    pos = torch.arange(n - 31 + 1, device=DEVICE)
+    _equal(part.get_kmers(pos, 31), g31[start:start + n - 31 + 1],
+           "the middle megabase's k-mers vs the whole's")
+
+    sim = dict(genome_len=SIZES["genome"], read_len=150, sub_rate=1e-3,
+               n_rate=1e-4, seed=seed)
+    chunks, have = [], 0
+    for chunk in simulate.iter_reads(n_reads=SIZES["reads"], **sim):
+        chunks.append(chunk)
+        have += chunk.shape[0]
+        if have >= PARITY["reads"]:
+            break
+    reads = np.concatenate(chunks)[:PARITY["reads"]]
+    specs = [generic.GenericSpec(*s) for s in smoke.PARITY_SPECS]
+    for b in range(0, reads.shape[0], PARITY["batch"]):
+        cpu = torch.from_numpy(reads[b:b + PARITY["batch"]])
+        card = cpu.to(DEVICE)
+        for spec in specs:
+            run = lambda spec=spec: generic.encode_windows(spec, card)
+            lanes, valid = (_walled(walls, "encode_windows_batch", run)
+                            if b == 0 and spec is specs[0] else run())
+            want_lanes, want_valid = generic.encode_windows(spec, cpu)
+            what = f"generic {spec} reads [{b}, +{cpu.shape[0]})"
+            _equal(lanes + (valid,), want_lanes + (want_valid,), what)
+            _equal(generic.decode(spec, lanes),
+                   generic.decode(spec, want_lanes), what + " decode")
+            _equal(generic.rev_comp(spec, lanes),
+                   generic.rev_comp(spec, want_lanes), what + " rev_comp")
+
+    digest = smoke.digest_arrays(smoke.parity_arrays(DEVICE))
+    if digest != smoke.PARITY_DIGEST:
+        raise AssertionError(f"parity digest {digest} != "
+                             f"{smoke.PARITY_DIGEST}")
+    seconds = time.time() - t_phase
+    stats["parity"] = dict(walls_s=walls, bases=len(genome),
+                           reads=int(reads.shape[0]), phase_s=seconds)
+    say(f"phase 16 parity surface in {seconds:.1f}s: {nvidia_smi()}; genome "
+        f"{len(genome)} bp: "
+        f"from_bytes == push_chars (chunks of {PARITY['chunk']}) == cpu; "
+        f"all_kmers {PARITY['ks']} and minimizers{PARITY['minimizer']} (mix, "
+        f"lex) == cpu; canonical all_kmers(31) == kmer_windows; simple_sds "
+        f"and npz == cpu; slice of {n} == whole; {reads.shape[0]} reads in "
+        f"batches of {PARITY['batch']} through encode_windows / decode / "
+        f"rev_comp at {[str(s) for s in smoke.PARITY_SPECS]} == cpu; parity "
+        f"digest == {digest[:16]}...; walls on the card: "
+        + ", ".join(f"{name} {t:.6f}s" for name, t in walls.items()))
+
+
 def seq_parallel_genome(seed: int, g: int):
     """Phase 14's sequence: the seeded [g] genome the reads come from, Ns
     at and beside each of the four shards' cuts."""
@@ -2165,6 +2323,7 @@ def main(argv=None) -> int:
     phase_sharded_compact(stats, args.workdir)
     phase_sharded_wide(stats, args.workdir, args.seed)
     phase_multiprocess(stats, args.workdir, args.seed)
+    phase_parity(stats, args.seed, args.workdir)
     phase_lookup(stats, args.seed, args.workdir)
     phase_sort_call(sort_inputs)
     phase_profiled(stats)

@@ -1,4 +1,5 @@
-"""Count tables to and from numpy, in the checkpoint's layout.
+"""State to and from numpy, in the JAX package's layouts: count tables,
+SeqVector words and the 32-bit lanes of the generic and wideint layers.
 
 The state a run carries is the count table.  ``kmers_tpu``'s checkpoint
 stores it as little-endian uint32 key planes -- ``keys_hi``/``keys_lo``
@@ -7,6 +8,11 @@ for 33 <= k <= 64 -- with ``counts`` (little-endian int32) and
 ``n_unique``; these functions map that layout to the port's CountTable /
 CountTableWide on any device and back, so a checkpoint written by either
 package resumes in the other.
+
+A SeqVector is its uint32 words (the npz's ``words``) and its base count;
+generic and wideint lanes are tuples of uint32 arrays, lane 0 least
+significant.  The port holds both as ``int64`` tensors of the uint32
+values.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.seqvector import SeqVector
 from .parallel.count import CountTable, CountTableWide, make_table
 
 KEY_NAMES = ("keys_hi", "keys_lo")
@@ -65,3 +72,32 @@ def table_to_numpy(table) -> dict:
     out["counts"] = host(table.counts).astype("<i4")
     out["n_unique"] = np.int64(table.n_unique)
     return out
+
+
+def _u32_values(a, device) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype != np.uint32:
+        raise TypeError(f"expected uint32 values, got {arr.dtype}")
+    return torch.from_numpy(arr.astype(np.int64)).to(device)
+
+
+def seqvector_from_numpy(words_u32, n_bases: int, device) -> SeqVector:
+    """The JAX package's SeqVector state (uint32 words, base count) -> a
+    SeqVector on `device`, the same words."""
+    return SeqVector(_u32_values(words_u32, device), int(n_bases))
+
+
+def seqvector_to_numpy(sv: SeqVector) -> tuple:
+    """SeqVector -> (uint32 words, base count), the JAX package's state."""
+    return sv.words.cpu().numpy().astype(np.uint32), sv.n_bases
+
+
+def lanes_from_numpy(lanes, device) -> tuple:
+    """uint32 lane arrays (generic / wideint) -> int64 lane tensors on
+    `device`."""
+    return tuple(_u32_values(x, device) for x in lanes)
+
+
+def lanes_to_numpy(lanes) -> tuple:
+    """int64 lane tensors -> uint32 lane arrays, the JAX package's lanes."""
+    return tuple(x.cpu().numpy().astype(np.uint32) for x in lanes)

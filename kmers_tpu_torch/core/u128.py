@@ -100,6 +100,13 @@ def reverse_complement(hi: torch.Tensor, lo: torch.Tensor, k: int) -> tuple:
     return shr(r_hi, r_lo, 2 * (64 - k))
 
 
+def lex_hash(hi: torch.Tensor, lo: torch.Tensor, k: int) -> tuple:
+    """The order-preserving base reversal (LexHasher extended to
+    1 <= k <= 64, kmers_tpu/core/u128.py:162-165)."""
+    check_k_range(k, 1, 64, "u128.lex_hash")
+    return shr(*reverse_bases(hi, lo), 2 * (64 - k))
+
+
 def mix_hash(hi: torch.Tensor, lo: torch.Tensor, seed: int = 0):
     """128-bit word -> 64-bit int64 bucketing hash, bit-identical to
     kmers_tpu.core.u128.mix_hash."""

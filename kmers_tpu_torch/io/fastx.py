@@ -1,11 +1,14 @@
 """FASTA/FASTQ ingest: the native batch parser ``native/libfastx.so`` with
 a pure-Python fallback (counterpart of ``kmers_tpu/io/fastx.py``).
 
-The port keeps its own copy of what it uses: the batch readers, the
-numpy 2-bit pack, the prefetch thread and the loader of the native
-parser (built by ``make -C native`` when the library is missing).  The
-batch layout is the reference's byte for byte:
+The port keeps its own copy: the record and batch readers, the 2-bit
+packs, the prefetch thread and the loader of the native parser (built by
+``make -C native`` when the library is missing).  The batch layout is the
+reference's byte for byte:
 
+  * ``read_records``: one record a row, [B, L] uint8 padded with 'N',
+    with each record's true length (a longer record keeps its first L
+    bases).
   * ``read_kmer_batches``: [B, L] uint8 rows padded with 'N'; a record
     longer than L is cut into rows with a (k-1)-base overlap, so every
     k-mer window of the record appears in exactly one row; the last batch
@@ -53,6 +56,11 @@ def _load_native() -> Optional[ctypes.CDLL]:
         return None
     lib.fastx_open.restype = ctypes.c_void_p
     lib.fastx_open.argtypes = [ctypes.c_char_p]
+    lib.fastx_next_batch.restype = ctypes.c_longlong
+    lib.fastx_next_batch.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_ubyte),
+        ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.POINTER(ctypes.c_longlong)]
     lib.fastx_next_batch_chunked.restype = ctypes.c_longlong
     lib.fastx_next_batch_chunked.argtypes = [
         ctypes.c_void_p, ctypes.POINTER(ctypes.c_ubyte),
@@ -66,8 +74,17 @@ def _load_native() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_longlong)]
     lib.fastx_close.restype = None
     lib.fastx_close.argtypes = [ctypes.c_void_p]
+    lib.pack2bit.restype = None
+    lib.pack2bit.argtypes = [
+        ctypes.POINTER(ctypes.c_ubyte), ctypes.c_longlong,
+        ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint64)]
     _lib = lib
     return lib
+
+
+def native_available() -> bool:
+    """Whether the native parser loads (or builds)."""
+    return _load_native() is not None
 
 
 def _open_maybe_gz(path: str):
@@ -127,6 +144,62 @@ def _open_native(lib, path: str):
     return handle
 
 
+def _native_batches(lib, path: str, batch: int, length: int,
+                    overlap: Optional[int] = None):
+    """(rows [batch, length] uint8 padded with 'N', lengths, n) from the
+    native parser: one record a row (the first `length` bases), or with
+    `overlap`, records cut into rows that share `overlap` bases."""
+    handle = _open_native(lib, path)
+    try:
+        while True:
+            buf = np.full((batch, length), PAD, dtype=np.uint8)
+            lens = np.zeros(batch, dtype=np.int64)
+            pbuf = buf.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte))
+            plen = lens.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong))
+            if overlap is None:
+                n = lib.fastx_next_batch(handle, pbuf, batch, length, plen)
+            else:
+                n = lib.fastx_next_batch_chunked(handle, pbuf, batch, length,
+                                                 overlap, plen)
+            if n < 0:
+                raise ValueError(f"{path}: malformed FASTA/FASTQ")
+            if n == 0:
+                return
+            yield buf, lens, int(n)
+    finally:
+        lib.fastx_close(handle)
+
+
+def read_records(path: str, batch: int, length: int,
+                 force_python: bool = False
+                 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """(rows [n, length] uint8 padded with 'N', lengths [n] int64) batches
+    of at most `batch` records, one record a row.  lengths are the true
+    record lengths: a longer record's row holds its first `length` bases
+    only (read_kmer_batches keeps every k-mer)."""
+    lib = None if force_python else _load_native()
+    if lib is not None:
+        for buf, lens, n in _native_batches(lib, path, batch, length):
+            yield buf[:n], lens[:n]
+        return
+    buf = np.full((batch, length), PAD, dtype=np.uint8)
+    lens = np.zeros(batch, dtype=np.int64)
+    n = 0
+    for rec in _py_records(path):
+        arr = np.frombuffer(rec, dtype=np.uint8)
+        ncopy = min(len(arr), length)
+        buf[n, :ncopy] = arr[:ncopy]
+        lens[n] = len(arr)
+        n += 1
+        if n == batch:
+            yield buf, lens
+            buf = np.full((batch, length), PAD, dtype=np.uint8)
+            lens = np.zeros(batch, dtype=np.int64)
+            n = 0
+    if n:
+        yield buf[:n], lens[:n]
+
+
 def read_kmer_batches(path: str, k: int, batch: int, length: int,
                       force_python: bool = False) -> Iterator[np.ndarray]:
     """Fixed-shape [batch, length] uint8 batches in which every k-mer of
@@ -136,22 +209,9 @@ def read_kmer_batches(path: str, k: int, batch: int, length: int,
         raise ValueError(f"need length >= k >= 1, got length={length}, k={k}")
     lib = None if force_python else _load_native()
     if lib is not None:
-        handle = _open_native(lib, path)
-        try:
-            while True:
-                buf = np.full((batch, length), PAD, dtype=np.uint8)
-                lens = np.zeros(batch, dtype=np.int64)
-                n = lib.fastx_next_batch_chunked(
-                    handle, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
-                    batch, length, k - 1,
-                    lens.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)))
-                if n < 0:
-                    raise ValueError(f"{path}: malformed FASTA/FASTQ")
-                if n == 0:
-                    return
-                yield buf
-        finally:
-            lib.fastx_close(handle)
+        for buf, _, _ in _native_batches(lib, path, batch, length, k - 1):
+            yield buf                  # rows past the records are all 'N'
+        return
     stride = length - (k - 1)
     out = np.full((batch, length), PAD, dtype=np.uint8)
     n = 0
@@ -278,3 +338,29 @@ def prefetch(it: Iterator, depth: int = 512) -> Iterator:
                 q.get_nowait()
         except queue.Empty:
             pass
+
+
+def pack2bit_native(ascii_bytes: bytes) -> Tuple[np.ndarray, np.ndarray]:
+    """Host 2-bit pack of one sequence: (uint32 code words, 16 bases a
+    word, as SeqVector's; uint64 validity bitmap words, 1 bit a base, LSB
+    first).  The native pack where the parser loads, else numpy."""
+    n = len(ascii_bytes)
+    arr = np.frombuffer(ascii_bytes, dtype=np.uint8)
+    lib = _load_native()
+    if lib is None:
+        from ..ops.seqvector import pack_ascii_to_words
+
+        lower = arr | 0x20
+        ok = ((lower == ord("a")) | (lower == ord("c")) |
+              (lower == ord("g")) | (lower == ord("t")))
+        bitmap = np.zeros((n + 63) // 64, dtype=np.uint64)
+        idx = np.nonzero(ok)[0]
+        np.bitwise_or.at(bitmap, idx // 64,
+                         np.uint64(1) << (idx % 64).astype(np.uint64))
+        return pack_ascii_to_words(arr), bitmap
+    words = np.zeros((n + 15) // 16, dtype=np.uint32)
+    bitmap = np.zeros((n + 63) // 64, dtype=np.uint64)
+    lib.pack2bit(arr.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)), n,
+                 words.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+                 bitmap.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)))
+    return words, bitmap

@@ -14,11 +14,15 @@ kernels/window_wide.py) are held against.  A word is one int64 for
 k <= 32 and a (hi, lo) pair of int64 for 33 <= k <= 64 (core/u128.py);
 the packed wide windows have no kernel in the JAX package either, and
 run as they are here on every device.
+
+The word operations of the reference's Kmer / CanonicalKmer (rolling
+appends and prepends, sub-k-mers, match type, the brute-force
+minimizer) work elementwise on tensors of such words.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -82,6 +86,23 @@ def canonical_word(fw: torch.Tensor, rc: torch.Tensor) -> torch.Tensor:
     """min(fw, rc) as unsigned words, the canonical strand (at k = 32 a
     word may have bit 63 set)."""
     return u64.unsigned_min(fw, rc)
+
+
+def reverse_complement(fw: torch.Tensor, k: int) -> torch.Tensor:
+    """Reverse complement of k-base words, 1 <= k <= 32."""
+    return u64.reverse_complement(fw, k)
+
+
+def is_fw_canonical(fw: torch.Tensor, rc: torch.Tensor) -> torch.Tensor:
+    """fw < rc as unsigned words (canonical_kmer.rs:66-69)."""
+    return u64.to_unsigned_order(fw) < u64.to_unsigned_order(rc)
+
+
+def is_canonical(fw: torch.Tensor, k: int) -> torch.Tensor:
+    """Kmer::is_canonical: fw <= its reverse complement, so palindromes
+    count (naive_impl/kmer.rs:55-58)."""
+    return (u64.to_unsigned_order(fw)
+            <= u64.to_unsigned_order(reverse_complement(fw, k)))
 
 
 def _windows(codes: torch.Tensor, vmask: torch.Tensor, k: int) -> KmerWindows:
@@ -194,6 +215,101 @@ def kmer_windows_packed_wide(words: torch.Tensor, validbits: torch.Tensor,
                          f"{tuple(validbits.shape)} disagree on L")
     return _windows_wide(unpack_codes(words, L),
                          unpack_validbits(validbits, L), k)
+
+
+# -- rolling updates (API parity with naive_impl) ------------------------------
+
+def _base(b: torch.Tensor) -> torch.Tensor:
+    """Base codes as the JAX package's uint32 lanes, in int64."""
+    return b.to(torch.int64) & u64.LOW32
+
+
+def append_base(data: torch.Tensor, b: torch.Tensor, k: int) -> tuple:
+    """Kmer::append_base: shift right, insert b at base k-1; returns (new
+    words, evicted low base) (naive_impl/kmer.rs:98-102)."""
+    evicted = data & 3
+    return u64.shr(data, 2) | u64.shl(_base(b), 2 * k - 2), evicted
+
+
+def prepend_base(data: torch.Tensor, b: torch.Tensor, k: int) -> tuple:
+    """Kmer::prepend_base: shift left, insert b at base 0, mask to k bases;
+    returns (new words, evicted high base) (naive_impl/kmer.rs:91-95).
+
+    The mask is MASK_TABLE[k], which is 0 at k = 32 (the reference's
+    quirk), so a prepend at k = 32 zeroes the word, as in the JAX package."""
+    evicted = u64.shr(data, 2 * k - 2) & 3
+    keep = 0 if k == 32 else u64.mask(2 * k)
+    return (u64.shl(data, 2) | (_base(b) & 3)) & keep, evicted
+
+
+def ck_append_base(fw: torch.Tensor, rc: torch.Tensor, b: torch.Tensor,
+                   k: int) -> tuple:
+    """CanonicalKmer::append_base: append b to fw, prepend its complement
+    to rc; returns (fw, rc, evicted) (canonical_kmer.rs:89-94)."""
+    new_fw, evicted = append_base(fw, b, k)
+    new_rc, _ = prepend_base(rc, 3 - (_base(b) & 3), k)
+    return new_fw, new_rc, evicted
+
+
+def ck_prepend_base(fw: torch.Tensor, rc: torch.Tensor, b: torch.Tensor,
+                    k: int) -> tuple:
+    """CanonicalKmer::prepend_base (canonical_kmer.rs:96-101)."""
+    new_fw, evicted = prepend_base(fw, b, k)
+    new_rc, _ = append_base(rc, 3 - (_base(b) & 3), k)
+    return new_fw, new_rc, evicted
+
+
+def sub_kmer_word(word: torch.Tensor, k: int, pos: int,
+                  width: int) -> torch.Tensor:
+    """(word >> 2 pos) masked to `width` bases (naive_impl/kmer.rs:156-162)."""
+    if not (0 <= pos < k and pos + width <= k):
+        raise ValueError(f"sub-k-mer [{pos}, {pos + width}) outside k={k}")
+    return u64.shr(word, 2 * pos) & u64.mask(2 * width)
+
+
+def match_type(fw: torch.Tensor, rc: torch.Tensor,
+               other: torch.Tensor) -> torch.Tensor:
+    """MatchType as int32: 0 NoMatch, 1 IdentityMatch, 2 TwinMatch
+    (canonical_kmer.rs:141-161); identity is checked first."""
+    return torch.where(fw == other, 1,
+                       torch.where(rc == other, 2, 0)).to(torch.int32)
+
+
+def minimizer(word: torch.Tensor, k: int, width: int,
+              hash_fn: Callable[[torch.Tensor], torch.Tensor]) -> tuple:
+    """Brute-force leftmost argmin of the hash over all k - width + 1
+    sub-k-mers (naive_impl/kmer.rs:170-192): strict-< updates on unsigned
+    hashes, so the leftmost tie wins.  Returns (words, int32 offsets)."""
+    best_mmer = sub_kmer_word(word, k, 0, width)
+    best_key = u64.to_unsigned_order(hash_fn(best_mmer))
+    best_pos = torch.zeros(word.shape, dtype=torch.int32, device=word.device)
+    for pos in range(1, k - width + 1):
+        mmer = sub_kmer_word(word, k, pos, width)
+        key = u64.to_unsigned_order(hash_fn(mmer))
+        take = key < best_key
+        best_mmer = torch.where(take, mmer, best_mmer)
+        best_key = torch.where(take, key, best_key)
+        best_pos = torch.where(take, pos, best_pos)
+    return best_mmer, best_pos
+
+
+def append_base_wide(data: tuple, b: torch.Tensor, k: int) -> tuple:
+    """append_base for 33 <= k <= 64 on (hi, lo) words: shift right, insert
+    b at base k-1; returns ((hi, lo), evicted low base)."""
+    check_k_range(k, 33, 64, "append_base_wide")
+    hi, lo = u128.shr(*data, 2)
+    return (hi | u64.shl(_base(b) & 3, 2 * k - 66), lo), data[1] & 3
+
+
+def prepend_base_wide(data: tuple, b: torch.Tensor, k: int) -> tuple:
+    """prepend_base for 33 <= k <= 64: shift left, insert b at base 0, mask
+    to k bases (no k = 32-style quirk); returns ((hi, lo), evicted high
+    base)."""
+    check_k_range(k, 33, 64, "prepend_base_wide")
+    hi, lo = data
+    evicted = u64.shr(hi, 2 * k - 66) & 3
+    new_hi = (u64.shl(hi, 2) | u64.shr(lo, 62)) & u64.mask(2 * k - 64)
+    return (new_hi, u64.shl(lo, 2) | (_base(b) & 3)), evicted
 
 
 _CODE = {"A": 0, "C": 1, "G": 2, "T": 3}

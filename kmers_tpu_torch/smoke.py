@@ -7,9 +7,20 @@ that fill every bit) are the ``npz_digest``s of the tables that
 the JAX package on the CPU and the port on the CPU both produce them;
 ``chip_smoke.py`` asserts that the port produces them on the card, where
 JAX is not installed.
+
+``PARITY_DIGEST`` ties the parity surface outside counting the same way:
+the sha256 (``digest_arrays``) of what SeqVector and the generic layer
+give on a small fixed input (``parity_arrays``): the sequence's k-mers at
+k = 31 and 32, its (k = 31, w = 11) minimizers under the mix and the lex
+hash, its simple_sds bytes, and the generic lanes, decoded bytes and
+reverse complements of every window of the reads at three specs.
 """
 
 from __future__ import annotations
+
+import hashlib
+
+import numpy as np
 
 from .io import simulate
 
@@ -42,3 +53,61 @@ def smoke_count_args(fastq: str, out: str, k: int = 31) -> list:
     """CLI arguments of the smoke count (either package's `count`)."""
     return ["count", fastq, "-k", str(k), "-o", out, "--capacity", "65536",
             "--batch", "256", "--length", "160"]
+
+
+# the parity input: a seeded genome as one sequence, and reads from it
+PARITY_INPUT = dict(genome_len=3_000, n_reads=64, read_len=150,
+                    sub_rate=1e-3, n_rate=1e-2, seed=20261017)
+# the generic layer's specs: (width bits, k, encoding)
+PARITY_SPECS = ((64, 31, "ACGT"), (128, 63, "GTCA"), (32, 15, "xor10"))
+PARITY_MINIMIZER = (31, 11)
+
+PARITY_DIGEST = \
+    "5f1623f8c16666ace5558d516515b735f8f653b787f9c6e9c13f84ec39d0e386"
+
+
+def parity_input() -> tuple:
+    """(the sequence as bytes, [n_reads, read_len] uint8 reads)."""
+    p = PARITY_INPUT
+    seq = simulate.genome(p["genome_len"], p["seed"]).tobytes()
+    reads = next(simulate.iter_reads(**p))
+    return seq, reads
+
+
+def digest_arrays(arrays) -> str:
+    """sha256 over each array's dtype, shape and bytes, in order."""
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.dtype.str}\0{a.shape}\0".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def parity_arrays(device) -> list:
+    """The port's outputs on the parity input, as numpy arrays in
+    ``PARITY_DIGEST``'s order (k-mer words uint64, positions int32, lanes
+    uint32, bytes uint8)."""
+    import torch
+
+    from .ops import generic, hash as khash
+    from .ops.seqvector import SeqVector
+
+    seq, reads = parity_input()
+    sv = SeqVector.from_bytes(seq, device=device)
+    host = lambda t: t.cpu().numpy()
+    out = [host(sv.all_kmers(k)[0]).view(np.uint64) for k in (31, 32)]
+    k, w = PARITY_MINIMIZER
+    for fn in (khash.mix_hash_fn(0), khash.lex_hash_fn(w)):
+        word, pos = sv.minimizers(k, w, fn)
+        out += [host(word).view(np.uint64), host(pos)]
+    out.append(np.frombuffer(sv.to_simple_sds(), dtype=np.uint8))
+    r = torch.from_numpy(reads).to(device)
+    for width, k, encoding in PARITY_SPECS:
+        spec = generic.GenericSpec(width, k, encoding)
+        lanes, _ = generic.encode_windows(spec, r)
+        out += [host(x).astype(np.uint32) for x in lanes]
+        out.append(host(generic.decode(spec, lanes)))
+        out += [host(x).astype(np.uint32)
+                for x in generic.rev_comp(spec, lanes)]
+    return out

@@ -674,3 +674,25 @@ def test_lookup_arms_agree_on_card(card):
     assert (want[6:3000][valid[6:3000]] > 0).all() and want[5] == 0
     for got in answers.values():
         assert torch.equal(got, want)
+
+
+def test_parity_surface_on_card_gives_the_pinned_digest(card):
+    """SeqVector and the generic layer on the card give the outputs that
+    PARITY_DIGEST pins to kmers_tpu's, array for array the CPU's."""
+    got = smoke.parity_arrays(card)
+    assert smoke.digest_arrays(got) == smoke.PARITY_DIGEST
+    for g, w in zip(got, smoke.parity_arrays("cpu")):
+        assert np.array_equal(g, w)
+
+
+def test_seqvector_reads_past_its_words_on_card(card):
+    """A read past the stored words gives the CPU's (JAX's) filled word,
+    with no device-side assert."""
+    from kmers_tpu_torch.ops.seqvector import SeqVector
+
+    words = torch.tensor([0x12345678, 0x9ABCDEF0, 0xFFFF0000], dtype=torch.int64)
+    pos = torch.arange(-3, 70)
+    for k in (1, 17, 32):
+        want = SeqVector(words, 48).get_kmers(pos, k)
+        got = SeqVector(words.to(card), 48).get_kmers(pos.to(card), k)
+        assert torch.equal(got.cpu(), want)

@@ -1,7 +1,9 @@
 """The port runs where JAX and the JAX package are absent: from a tree
 that holds only ``kmers_tpu_torch/`` and ``native/``, with
 ``sys.modules["jax"] = None`` (any import of jax then fails), every module
-imports, and a tiny count runs on the CPU at k = 15 (on one device, and
+imports (compat, the generic layer, SeqVector, profiling and utils among
+them), a SeqVector round-trips its simple_sds bytes, and a tiny count
+runs on the CPU at k = 15 (on one device, and
 sharded over two CPU shards by hash and by minimizer), k = 32, k = 63 and
 k = 64 (k = 32 and 63 sharded over two CPU shards too); the sharded
 lookup service answers over two CPU shards at both
@@ -83,6 +85,18 @@ from kmers_tpu_torch.parallel.mesh import (
 assert (process_count(), process_index(), local_read_slice(5)) == (
     1, 0, slice(0, 5))
 assert len(dryrun.run(m2)["checks"]) == 12
+from kmers_tpu_torch import compat, profiling, utils
+from kmers_tpu_torch.ops import generic, seqvector
+sv = seqvector.SeqVector.from_str("ACGT" * 20 + "TTG", device="cpu")
+sv.push_chars(b"GATTACA")
+blob = sv.to_simple_sds()
+back = seqvector.SeqVector.from_simple_sds(blob, device="cpu")
+assert back.to_simple_sds() == blob and back.to_string() == sv.to_string()
+spec = generic.GenericSpec(64, 31, "ACGT")
+lanes, _ = generic.encode_windows(spec, rows[:2])
+assert len(lanes) == 2 and utils.kmer_space(3) == 64
+assert compat.Kmer.from_str("ACGT").data == 0b11100100
+assert profiling.MetricsAccumulator().summary() == {"steps": 0}
 assert "kmers_tpu" not in sys.modules and "jax.numpy" not in sys.modules
 print("NOJAX-OK")
 """
