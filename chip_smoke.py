@@ -43,13 +43,16 @@ the exit code is non-zero):
      have zero routing overflow, save the table of phase 3's single-device
      count (npz_digest), and launch K3 and K4 (and K9 under the minimizer
      partition).
-  8. K10 (narrow and wide, every segment size from 8 to 4096) and K11
-     against their plain versions on the count forms' keys, timed (K10 at
-     segments of 64 and 1024; K11 beside torch.sort at the 2^18 keys of a
-     phase-11 shard, 2^20, 2^24 and 1,000,003 keys).
+  8. K10 (narrow and wide, every segment size from 8 to 4096 in one
+     thread block, and 8192, 16384 and 65536 through the merge rounds)
+     and K11 against their plain versions on the count forms' keys, timed
+     (K10 at segments of 64, 1024, 8192, 16384 and 65536; K11 beside
+     torch.sort at the 2^18 keys of a phase-11 shard, 2^20, 2^24 and
+     1,000,003 keys).
   9. the 1M-read set through the compact (K11) and run-length (K10)
-     batch tables, folded every 16 batches: each table equals phase 3's /
-     phase 4's.
+     batch tables, and through count_words_segmented(_wide) at 8192-lane
+     segments (K10's merge rounds), folded every 16 batches: each table
+     equals phase 3's / phase 4's.
  10. `count` at k=32 and k=64 (run-length path) against torch.unique,
      and their smoke digests, eviction, stats and query.
  11. the compact sharded counter and minimizer bucketing on 4 shards.
@@ -129,6 +132,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 sys.modules["jax"] = None          # the port must run where JAX is absent
 
@@ -142,6 +146,9 @@ SIZES = dict(window=(4096, 256), window_odd=(1001, 288),
              merge=1 << 24,
              compress=1 << 25, reads=1_000_000, short_reads=100_000,
              genome=4_641_652, sort_big=1 << 24, odd=1_000_003)
+# K10's segments past one thread block's 4096 lanes (the merge rounds);
+# phase 9 folds the 1M reads through the first of them
+LARGE_SEGMENTS = (8192, 16384, 65536)
 PROFILED_CALLS = 20                # calls phase 12 profiles a kernel over
 
 KERNEL_INFO = {
@@ -1057,10 +1064,13 @@ def phase_sort_kernels(stats: dict, seed: int, workdir: str) -> dict:
     plain versions, on the keys the count forms give them: a [4096, 256]
     batch's folded canonical keys at k=31 and k=63 (2^20 lanes, and the
     first 1,000,003 of them, off the block size; K10 at every segment size
-    it takes, timed at 64 and 1024 lanes), the compact form's sort
-    keys at k=31 (2^20), one phase-11 shard's keys (2^18), and 2^24 and
-    1,000,003 seeded 64-bit keys with duplicates and flagged lanes; median
-    times, and torch.sort's for K11.  Returns K11's inputs by label."""
+    one thread block sorts, 8-4096 lanes, and at 8192, 16384 and 65536
+    through the merge rounds, also at 2^20 - 1,000 lanes and at blocks of
+    twice the segment; timed at 64 and 1024 lanes and at the three large
+    sizes), the compact form's sort keys at k=31 (2^20), one phase-11
+    shard's keys (2^18), and 2^24 and 1,000,003 seeded 64-bit keys with
+    duplicates and flagged lanes; median times, and torch.sort's for K11.
+    Returns K11's inputs by label."""
     import numpy as np
     import torch
 
@@ -1076,6 +1086,7 @@ def phase_sort_kernels(stats: dict, seed: int, workdir: str) -> dict:
     canon, valid = canon.reshape(-1), valid.reshape(-1)
     (whi, wlo), wvalid = pipeline.canonical_kmers_wide(reads, 63)
     odd = SIZES["odd"]
+    one_block = [1 << i for i in range(3, kct.SEG_LANES_MAX.bit_length())]
     notes = []
     for name, fn, planes in (
             ("segment_count_keys", kct.segment_count_keys,
@@ -1083,17 +1094,26 @@ def phase_sort_kernels(stats: dict, seed: int, workdir: str) -> dict:
             ("segment_count_keys_wide", kct.segment_count_keys_wide,
              u128.fold_invalid(whi.reshape(-1), wlo.reshape(-1),
                                wvalid.reshape(-1)))):
-        # every segment size the kernel takes, 2^20 lanes and 1,000,003;
-        # timed at the count path's 64 (count_words_segmented) and at 1024
-        err = max(max_abs_err(fn(*ps, seg_lanes=seg, block_lanes=1 << 14),
-                              kct.segment_count_plain(ps, seg, 1 << 14))
-                  for seg in kct.CARD_SEG_LANES
-                  for ps in (planes, tuple(p[:odd] for p in planes)))
+        # (seg, n, block_lanes): every size one block sorts at 2^20 lanes
+        # and 1,000,003; the merge rounds' sizes at 2^20 and 2^20 - 1,000,
+        # at blocks of max(seg, 2^14) and of 2 seg
+        n = planes[0].shape[0]
+        cases = [(seg, m, 1 << 14) for seg in one_block for m in (n, odd)]
+        cases += [(seg, m, blk) for seg in LARGE_SEGMENTS
+                  for m in (n, n - 1000)
+                  for blk in (max(seg, 1 << 14), 2 * seg)]
+        err = 0
+        for seg, m, blk in cases:
+            ps = tuple(p[:m] for p in planes)
+            err = max(err, max_abs_err(fn(*ps, seg_lanes=seg,
+                                          block_lanes=blk),
+                                       kct.segment_count_plain(ps, seg, blk)))
         times = {}
-        for seg in (64, 1024):
-            run = lambda: fn(*planes, seg_lanes=seg, block_lanes=1 << 14)
+        for seg in (64, 1024) + LARGE_SEGMENTS:
+            blk = max(seg, 1 << 14)
+            run = lambda: fn(*planes, seg_lanes=seg, block_lanes=blk)
             times[seg] = (time_ms(run), time_ms(
-                lambda: kct.segment_count_plain(planes, seg, 1 << 14)),
+                lambda: kct.segment_count_plain(planes, seg, blk)),
                 bound_ms(nbytes(*planes, *run())))
         stats["profiled"][f"{name} seg 64"] = (
             lambda fn=fn, planes=planes: fn(*planes, seg_lanes=64,
@@ -1101,8 +1121,9 @@ def phase_sort_kernels(stats: dict, seed: int, workdir: str) -> dict:
         ms, plain_ms, bound = times[64]
         res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound, library_ms=None, sizes=times)
-        notes.append(f"{name} [{planes[0].shape[0]}] seg_lanes "
-                     f"{kct.CARD_SEG_LANES}; " + ", ".join(
+        sizes = one_block + list(LARGE_SEGMENTS)
+        notes.append(f"{name} [{n}] seg_lanes {sizes} ({len(cases)} "
+                     "cases); " + ", ".join(
                          f"seg {seg} {t[0]:.4f} ms (plain {t[1]:.3f}, bound "
                          f"{t[2]:.4f})" for seg, t in times.items()))
 
@@ -1271,10 +1292,12 @@ def _same_table(got, want) -> bool:
 
 def phase_count_forms(stats: dict, workdir: str) -> None:
     """Phase 9: the 1M-read set through count_reads(_wide)'s counted forms,
+    and through count_words_segmented(_wide) at LARGE_SEGMENTS[0] lanes,
     each batch's table folded with _merge_bounded(_wide) every 16 batches
     at capacity 2^24; each table must be phase 3's / phase 4's, and each
     run must launch its kernel (K11 for the compact form, K10 narrow and
-    wide for the run-length forms)."""
+    wide for the run-length forms, at 64-lane segments and through the
+    merge rounds)."""
     import torch
 
     from kmers_tpu_torch import kernels
@@ -1284,12 +1307,30 @@ def phase_count_forms(stats: dict, workdir: str) -> None:
 
     fastq = os.path.join(workdir, "ecoli_1m.fastq")
     capacity, batch, length = 1 << 24, 4096, 256
+    seg = LARGE_SEGMENTS[0]
     runs = (("compact", 31, True, "radix_sort_u64"),
             ("runlength", 31, False, "segment_count_keys"),
-            ("runlength", 63, False, "segment_count_keys_wide"))
+            ("runlength", 63, False, "segment_count_keys_wide"),
+            (f"segmented{seg}", 31, None, "segment_count_keys"),
+            (f"segmented{seg}", 63, None, "segment_count_keys_wide"))
+
+    def segmented(r, k, compact=None):
+        """count_words_segmented(_wide) at seg lanes: K10's merge rounds."""
+        if k > 32:
+            words, valid = pipeline.canonical_kmers_wide(r, k)
+            table = count_ops.count_words_segmented_wide(words, valid,
+                                                         seg_lanes=seg)
+        else:
+            words, valid = pipeline.canonical_kmers(r, k)
+            table = count_ops.count_words_segmented(words, valid,
+                                                    seg_lanes=seg)
+        return types.SimpleNamespace(
+            table=table, metrics={"kmers_emitted": valid.sum()})
+
     for form, k, compact, kernel in runs:
         wide = k > 32
-        count = pipeline.count_reads_wide if wide else pipeline.count_reads
+        count = (segmented if compact is None else pipeline.count_reads_wide
+                 if wide else pipeline.count_reads)
         empty = (count_ops.empty_table_wide if wide
                  else count_ops.empty_table)(capacity, DEVICE)
         merge = stream._merge_bounded_wide if wide else stream._merge_bounded
@@ -1314,7 +1355,8 @@ def phase_count_forms(stats: dict, workdir: str) -> None:
                                  f"{4 if wide else 3}'s")
         if launches[kernel] == 0:
             raise AssertionError(f"{name}: {kernel} was not launched")
-        stats["launches"][kernel] = launches[kernel]
+        stats["launches"][kernel] = (stats["launches"].get(kernel, 0)
+                                     + launches[kernel])
         stats[name] = dict(wall_s=wall, batches=n, kmers=kmers,
                            kmers_per_s=kmers / wall, peak_bytes=peak,
                            launches=launches)

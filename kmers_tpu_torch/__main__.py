@@ -26,17 +26,6 @@ import time
 from .core.spec import NARROW_MAX_K, check_k
 
 
-def _device(name: str):
-    import torch
-
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {name}: torch.cuda.is_available() is false "
-            "(pass --device cpu to run the plain PyTorch path)")
-    return device
-
-
 def _unsupported(args):
     """The error for arguments the count refuses (k outside 1..64, the
     sharded minimizer partition past k = 31, a minimizer width that does
@@ -60,7 +49,7 @@ def _cmd_count(args) -> int:
     import traceback
 
     from .io import fastx
-    from .parallel.mesh import mesh_for
+    from .parallel.mesh import cli_device, mesh_for
     from .parallel.stream import (ShardedStreamingCounter, StreamingCounter,
                                   auto_merge_every, pending_table_lanes)
 
@@ -68,7 +57,7 @@ def _cmd_count(args) -> int:
     if bad:
         print(f"error: {bad}", file=sys.stderr)
         return 2
-    device = _device(args.device)
+    device = cli_device(args.device)
     sharded = args.devices > 1
     if sharded:
         try:
@@ -235,9 +224,10 @@ def _cmd_count(args) -> int:
 def _cmd_query(args) -> int:
     from .core import u64, u128
     from .ops.kmer import canonical_from_string, canonical_from_string_wide
+    from .parallel.mesh import cli_device
     from .parallel.stream import StreamingCounter
 
-    sc = StreamingCounter.load(args.table, device=_device(args.device))
+    sc = StreamingCounter.load(args.table, device=cli_device(args.device))
     canonical = (canonical_from_string_wide if sc.wide
                  else canonical_from_string)
     words, bad = [], False
@@ -265,9 +255,10 @@ def _cmd_query(args) -> int:
 
 
 def _cmd_stats(args) -> int:
+    from .parallel.mesh import cli_device
     from .parallel.stream import StreamingCounter
 
-    sc = StreamingCounter.load(args.table, device=_device(args.device))
+    sc = StreamingCounter.load(args.table, device=cli_device(args.device))
     nu = sc.table.n_unique
     counts = sc.table.counts[:nu].cpu().numpy()
     print(f"k:              {sc.k}")

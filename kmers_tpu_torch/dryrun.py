@@ -22,8 +22,11 @@ rows (mesh.local_read_slice); the independent counts are torch.unique
 over the plain windows (or minimizer words) of the whole input.  Run in
 one process, or as one rank of a process group:
 
-    python -m kmers_tpu_torch.dryrun [--device cpu|cuda] [--local-shards L]
+    python -m kmers_tpu_torch.dryrun [--device cuda|cpu] [--local-shards L]
         [--rank R --world P --init URL [--backend gloo|nccl]] [--out DIR]
+
+--device defaults to cuda; without a card that is an error, as in the
+CLI (pass --device cpu for the plain PyTorch path).
 
 Each rank checks the global results and prints one JSON line (its checks,
 digests and kernel launches).  With --out it writes its arrays to
@@ -296,9 +299,9 @@ def run(mesh, seed: int = 0, out: Optional[str] = None) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--device", default=None,
-                    help="cuda (rank r takes card r modulo the cards) or "
-                         "cpu; default cuda where there is a card")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default; rank r takes card r modulo the "
+                         "cards) or cpu; cuda without a card is an error")
     ap.add_argument("--local-shards", type=int, default=2)
     ap.add_argument("--rank", type=int, default=0)
     ap.add_argument("--world", type=int, default=1)
@@ -311,8 +314,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
-    device = torch.device(args.device or (
-        "cuda" if torch.cuda.is_available() else "cpu"))
+    device = mesh_ops.cli_device(args.device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", args.rank % torch.cuda.device_count())
     if args.world > 1:

@@ -57,7 +57,7 @@ _SIGNATURES = {
     "kt_compress_scratch_lanes": ([_LL], _LL),
     "kt_merge_tile": ([], _I),
     "kt_merge_tile_wide": ([], _I),
-    "kt_segment_count": ([_P] * 4 + [_LL, _LL, _I, _I] + [_P] * 6, _I),
+    "kt_segment_count": ([_P] * 4 + [_LL, _LL, _LL, _I] + [_P] * 7, _I),
     "kt_radix_tile": ([], _I),
     "kt_radix_scratch_bytes": ([_LL], _LL),
     "kt_radix_sort": ([_P, _P, _LL] + [_P] * 6, _I),

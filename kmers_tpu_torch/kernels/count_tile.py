@@ -11,11 +11,14 @@ seg_lanes segment the keys ascend as unsigned words over the planes,
 valid first; counts hold the run length at run starts and 0 elsewhere;
 invalid lanes are zero.  It is NOT globally sorted: a key owns one run
 per segment it appears in, so only a merge (count.merge_many) makes it
-exact.  Segments are powers of two from 8 lanes to block_lanes; the CUDA
-kernel sorts a segment within one thread block, so on the card they stop
-at SEG_LANES_MAX (JAX on a TPU takes any up to block_lanes; no caller
-passes more than 1024).  CUDA source: ``csrc/count_tile.cu`` (one
-template on the plane count and the segment size).
+exact.  Segments are powers of two from 8 lanes to block_lanes, as in
+JAX.  CUDA source: ``csrc/count_tile.cu``: one kernel sorts and counts a
+segment of up to SEG_LANES_MAX lanes in one thread block (a template on
+the plane count and the segment size); a larger segment is sorted in
+4096-lane tiles by the same kernel, merged through global memory in
+log2(seg_lanes / 4096) rounds and counted by the same kernel again, with
+n_planes x n_pad lanes of scratch.  Either way a call is one launch of
+its name in the counts.
 """
 
 from __future__ import annotations
@@ -27,9 +30,9 @@ from . import _build, check_tensor, count_launch, on_cuda
 
 INVALID_HI = 0x80000000
 _INVALID_HI_I32 = INVALID_HI - (1 << 32)
-SEG_LANES_MAX = 4096                     # csrc/count_tile.cu's SC_MAX_SEG
-# the segment sizes the CUDA kernel takes
-CARD_SEG_LANES = tuple(1 << i for i in range(3, SEG_LANES_MAX.bit_length()))
+# the largest segment one thread block sorts (csrc/count_tile.cu's
+# SC_MAX_SEG); larger ones take the merge rounds
+SEG_LANES_MAX = 4096
 
 
 def _check_sizes(seg_lanes: int, block_lanes: int) -> None:
@@ -38,14 +41,6 @@ def _check_sizes(seg_lanes: int, block_lanes: int) -> None:
             and block_lanes % seg_lanes == 0):
         raise ValueError(f"seg_lanes={seg_lanes}, block_lanes={block_lanes}: "
                          "need powers of two, 8 <= seg_lanes <= block_lanes")
-
-
-def check_card_seg_lanes(seg_lanes: int, name: str) -> None:
-    """Raise past the largest segment the CUDA kernel sorts."""
-    if seg_lanes > SEG_LANES_MAX:
-        raise ValueError(f"{name}: the CUDA kernel sorts segments of at most "
-                         f"SEG_LANES_MAX = {SEG_LANES_MAX} lanes, got "
-                         f"seg_lanes={seg_lanes}")
 
 
 def _padded(planes: tuple, n_pad: int) -> list:
@@ -102,17 +97,20 @@ def _segment_count(planes: tuple, seg_lanes: int, block_lanes: int,
         check_tensor(p, f"plane {i}", torch.int32, (n,))
     if not on_cuda(*planes):
         return segment_count_plain(planes, seg_lanes, block_lanes)
-    check_card_seg_lanes(seg_lanes, name)
     n_pad = -(-n // block_lanes) * block_lanes
     device = planes[0].device
     out = [torch.empty(n_pad, dtype=torch.int32, device=device)
            for _ in range(len(planes) + 1)]
+    scratch = (torch.empty(len(planes) * n_pad, dtype=torch.int32,
+                           device=device)
+               if seg_lanes > SEG_LANES_MAX else None)
     ins = list(planes) + [planes[0]] * (4 - len(planes))
     outs = out[:-1] + [out[0]] * (4 - len(planes))
     with torch.cuda.device(device):
         code = _build.lib().kt_segment_count(
             *(p.data_ptr() for p in ins), n, n_pad, seg_lanes, len(planes),
             *(o.data_ptr() for o in outs), out[-1].data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _build.check(code, name)
     count_launch(name)

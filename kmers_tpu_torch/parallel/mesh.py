@@ -169,6 +169,17 @@ def make_mesh(n_devices: Optional[int] = None,
     return mesh
 
 
+def cli_device(name: str) -> torch.device:
+    """The device a --device argument names.  A cuda device without a card
+    raises: no entry point falls back to the CPU by itself."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {name}: torch.cuda.is_available() is false "
+            "(pass --device cpu to run the plain PyTorch path)")
+    return device
+
+
 def mesh_for(device, n_shards: int) -> Mesh:
     """The CLI's mesh (one process): n_shards CUDA devices for a cuda
     `device`, or n_shards shards on the CPU for a cpu one."""

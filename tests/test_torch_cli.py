@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from kmers_tpu.__main__ import main as jax_main
-from kmers_tpu_torch import smoke
+from kmers_tpu_torch import dryrun, smoke
 from kmers_tpu_torch.__main__ import main as port_main
 from kmers_tpu_torch.parallel.stream import npz_digest
 
@@ -136,6 +136,15 @@ def test_cli_cuda_device_needs_a_card(fastq, tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         run(port_main, ["count", fastq, "-k", "21", "-o",
                         str(tmp_path / "x.npz")])
+
+
+def test_dryrun_cuda_device_needs_a_card():
+    """The dry run defaults to cuda and, without a card, raises and names
+    --device cpu instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        dryrun.main([])
 
 
 def test_cli_checkpoint_and_resume(fastq, tmp_path):

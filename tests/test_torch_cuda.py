@@ -463,24 +463,54 @@ def patterned(planes):
 @pytest.mark.parametrize("n", [0, 1, 777, 16384, 1 << 20, 1_000_003])
 def test_segment_count_kernel_matches_plain(card, n):
     """K10 narrow (k=31) and wide (k=63) on every output lane, at every
-    segment size the kernel takes (8 to SEG_LANES_MAX), n on and off the
-    block size; random keys, and segments of one key, of invalid lanes
-    only and of two alternating keys."""
+    segment size from 8 to 65536 (past SEG_LANES_MAX = 4096 through the
+    merge rounds), n on and off the block size; random keys, and segments
+    of one key, of invalid lanes only and of two alternating keys."""
     from kmers_tpu_torch.kernels import count_tile as tct
 
-    assert tct.CARD_SEG_LANES == tuple(1 << i for i in range(3, 13))
     for n_planes, k, fn in ((2, 31, tct.segment_count_keys),
                             (4, 63, tct.segment_count_keys_wide)):
         planes = folded_keys(card, n, n_planes, k, n + n_planes)
         for keys in (planes, patterned(planes)):
-            for seg in tct.CARD_SEG_LANES:
+            for seg in (1 << i for i in range(3, 17)):
                 blk = max(seg, 1 << 14 if n > 4096 else 1024)
                 got = fn(*keys, seg_lanes=seg, block_lanes=blk)
                 want = tct.segment_count_plain(keys, seg, blk)
                 assert equal_all(got, want), (n_planes, seg)
-    with pytest.raises(ValueError, match="SEG_LANES_MAX"):
-        tct.segment_count_keys(*folded_keys(card, 64, 2, 31, 0),
-                               seg_lanes=2 * tct.SEG_LANES_MAX)
+    keys = folded_keys(card, 64, 2, 31, 0)
+    got = tct.segment_count_keys(*keys, seg_lanes=2 * tct.SEG_LANES_MAX)
+    assert equal_all(got, tct.segment_count_plain(keys, 2 * tct.SEG_LANES_MAX,
+                                                  1 << 14))
+
+
+def test_count_words_segmented_past_one_block_on_card(card):
+    """count_words_segmented and its _wide form at 8192-lane segments run
+    on the card and give the CPU's run-length table lane for lane."""
+    from kmers_tpu_torch.parallel import count
+
+    g = torch.Generator(device=card).manual_seed(14)
+    n = 20000
+    valid = torch.rand(n, device=card, generator=g) >= 0.2
+    words = torch.randint(0, 1 << 62, (3000,), device=card, generator=g)[
+        torch.randint(0, 3000, (n,), device=card, generator=g)]
+    kernels.reset_launch_counts()
+    got = count.count_words_segmented(words, valid, seg_lanes=8192)
+    want = count.count_words_segmented(words.cpu(), valid.cpu(),
+                                       seg_lanes=8192)
+    assert kernels.launch_counts()["segment_count_keys"] == 1
+    assert got.n_unique == want.n_unique
+    assert equal_all((got.keys_hi, got.keys_lo, got.counts),
+                     tuple(t.to(card) for t in (want.keys_hi, want.keys_lo,
+                                                want.counts)))
+    hi = torch.randint(0, 1 << 62, (n,), device=card, generator=g)
+    wide = (hi, words)
+    got = count.count_words_segmented_wide(wide, valid, seg_lanes=8192)
+    want = count.count_words_segmented_wide(tuple(w.cpu() for w in wide),
+                                            valid.cpu(), seg_lanes=8192)
+    assert kernels.launch_counts()["segment_count_keys_wide"] == 1
+    assert got.n_unique == want.n_unique
+    assert equal_all(got.keys + (got.counts,),
+                     tuple(t.to(card) for t in want.keys + (want.counts,)))
 
 
 @pytest.mark.parametrize("B", [13, 1, 524_289])
