@@ -11,8 +11,8 @@ the exit code is non-zero):
   2. kernels: the hash emitters K5 and K8 driven once as bench.py's step,
      and the stage variants (K2 at stage "pack", K9 at stage "hash") once
      as bench_configs.py's ablation steps (their launch counts), then each CUDA kernel and variant against its plain PyTorch
-     version on the card at main-path shapes, bit for bit (K1 also at
-     [1001, 288], K2 and K7 at [1001, 150], K5 and K8 at [1001, 150] and
+     version on the card at main-path shapes, bit for bit (K1 at both
+     stages also at [1001, 288], K2 and K7 at [1001, 150], K5 and K8 at [1001, 150] and
      [7, 257], K4 at 1,000,003 lanes on aligned planes and on views off 16
      bytes, keep bytes 1-255); median times of both.
   3. end to end, k=31: `count` on a seeded E. coli-scale read set
@@ -22,6 +22,9 @@ the exit code is non-zero):
      window (K1), merge (K3) and compress (K4) kernels.  A shorter
      --ascii-ingest run must launch K2 and give the packed run's table;
      the walls of both 100k-read runs.
+ 3b. the packed ingest's arm of the roofline ablation: one pass of K1 at
+     stage "pack" over phase 3's reads as packed [4096, 256] batches (its
+     launch count), and whole-pass walls of both K1 stages in turns.
   4. end to end, k=63 (128-bit keys): the same run on the same reads;
      the table must equal an independent torch.unique(dim=0) count of
      the plain wide windows, and the run must have launched the wide
@@ -95,6 +98,16 @@ the exit code is non-zero):
      the CPU's; PARITY_DIGEST (pinned by the tests to kmers_tpu's CPU
      output) recomputed on the card.  The walls of from_bytes,
      all_kmers(31), minimizers(31, 11) and one encode_windows batch.
+ 17. the mesh's second axis (after 16, before 13 and 12): a (2, 2) mesh
+     on the one card (make_mesh(devices=[cuda] * 4, seq_shards=2)); the
+     hash counter at k=31 over "d" and over "s" on the first 250,000 of
+     phase 3's reads, and over "s" the super-k-mer counter (k=31, w=11)
+     on the first 65,536, the sequence-parallel counter at k=31 on phase
+     14's genome and the lookup at both arms at phase 13's shape (b):
+     every local shard's table equal, lane for lane, to the one-axis
+     D = 2 run's at its index along the axis, the same metrics, no
+     overflow, the lookup's answers equal; the 2-D calls launch K11, K9,
+     K4 and K3 with idx.  Each wall beside the D = 2 call's.
  13. the distributed lookup service (runs before phase 12, whose profiler
      would slow it), both answer arms of make_sharded_lookup (merge: K3
      with its source-index plane and K4; binary search): bench_configs.py
@@ -110,7 +123,8 @@ the exit code is non-zero):
  12. one K11 call on phase 8's 2^20 keys: whether the host waits for the
      card in it, the device operations it queues and the key bytes it
      moves; then the device time of each of its kernels at every phase-8
-     size, and of one K1, K2 (k=31) and K7 (k=63) at [4096, 256], K5
+     size, and of one K1 (both stages), K2 (k=31) and K7 (k=63) at
+     [4096, 256], K5
      (k=31) and K8 (k=63) at [2048, 1024], the stage variants, K10 (seg
      64), K4 (2^25: its memset and its one kernel) and K3 with idx
      (2^24 + 2^24) call at their timed shapes (torch.profiler, last so
@@ -178,6 +192,9 @@ KERNEL_INFO = {
                                 "kmers_tpu/kernels/count_tile.py:262"),
     "radix_sort_u64": ("kmers_tpu_torch/kernels/csrc/sort.cu",
                        "kmers_tpu/kernels/sort.py:184"),
+    "pack_canonical_keys_packed[pack]": (
+        "kmers_tpu_torch/kernels/csrc/window.cu",
+        "kmers_tpu/kernels/window.py:338 (stage=\"pack\")"),
     "pack_canonical_keys[pack]": (
         "kmers_tpu_torch/kernels/csrc/window.cu",
         "kmers_tpu/kernels/window.py:391 (stage=\"pack\")"),
@@ -217,6 +234,15 @@ WORKER_CMD = [sys.executable, os.path.abspath(__file__)]
 # 3's set that go through the generic layer, in batches
 PARITY = dict(chunk=150_000, ks=(31, 32), minimizer=(31, 11),
               slice_len=1_000_000, reads=100_000, batch=4096)
+# phase 17: the two-axis mesh (d, s) on the one card; the first `reads` of
+# phase 3's set for the hash counter at k = 31 (a sender's 125,000 rows
+# hold ~15M windows, ~7.5M a destination, so 2^23 lanes leave no
+# overflow), the first `superkmer_reads` for the super-k-mer counter
+# (~12 super-k-mers a read, ~197k a destination), and a sender's share of
+# phase 13's (b) queries as the lookup's query capacity
+MESH2D = dict(shape=(2, 2), reads=250_000, route_capacity=1 << 23,
+              superkmer_reads=65_536, superkmer_capacity=1 << 18,
+              query_capacity=1 << 19)
 # phase 13's lookups: bench_configs.py --lookup's table and queries on one
 # shard (:576-596), and phase 3's table split over four shards of 2^22
 # slots with 2^20 queries, 2^17 lanes a sender and destination
@@ -381,6 +407,23 @@ def phase_kernels(stats: dict, seed: int) -> None:
             words, vbits, 31))), library_ms=None)
     stats["profiled"]["pack_canonical_keys_packed [4096, 256]"] = (
         lambda: kwin.pack_canonical_keys_packed(words, vbits, 31))
+    # K1 at stage "pack" (the packed ingest's compute-light arm of the
+    # roofline ablation) on the same inputs, timed beside "canon"; its
+    # launch count comes from phase 3's pass (phase_ablation_packed)
+    k1_pack = lambda w, v, k: kwin.pack_canonical_keys_packed(w, v, k, "pack")
+    res["pack_canonical_keys_packed[pack]"] = dict(
+        max_abs_err=max(max_abs_err(
+            k1_pack(w, v, k),
+            kwin.pack_canonical_keys_packed_plain(w, v, k, "pack"))
+            for w, v in ((words, vbits), (odd_w, odd_v))
+            for k in (1, 15, 16, 17, 31)),
+        ms=time_ms(lambda: k1_pack(words, vbits, 31)),
+        plain_ms=time_ms(lambda: kwin.pack_canonical_keys_packed_plain(
+            words, vbits, 31, "pack")),
+        bound_ms=bound_ms(nbytes(words, vbits, *k1_pack(words, vbits, 31))),
+        library_ms=None)
+    stats["profiled"]["pack_canonical_keys_packed[pack] [4096, 256]"] = (
+        lambda: k1_pack(words, vbits, 31))
     res["pack_canonical_keys"] = dict(
         max_abs_err=e2,
         ms=time_ms(lambda: kwin.pack_canonical_keys(reads, 31)),
@@ -864,6 +907,52 @@ def phase_end_to_end(stats: dict, seed: int, workdir: str, k: int,
            if ascii_window else ""))
 
 
+def phase_ablation_packed(stats: dict, workdir: str) -> None:
+    """Phase 3b: the packed ingest's arm of the roofline ablation (K1 at
+    stage "pack", the forward words, beside stage "canon").  Phase 3's
+    1M reads as packed [4096, 256] batches on the card; one pass of K1 at
+    stage "pack" gives its launch count (the counts set to 0 just before
+    and read just after), then the walls of whole passes at each stage,
+    in turns (pack, canon, canon, pack)."""
+    import numpy as np
+    import torch
+
+    from kmers_tpu_torch import kernels
+    from kmers_tpu_torch.io import fastx
+    from kmers_tpu_torch.kernels import window as kwin
+
+    fastq = os.path.join(workdir, "ecoli_1m.fastq")
+    batches = [tuple(torch.from_numpy(a.view(np.int32)).to(DEVICE)
+                     for a in wv)
+               for wv in fastx.read_packed_batches(fastq, k=31, batch=4096,
+                                                   length=256)]
+    lanes = sum(w.shape[0] * w.shape[1] * 16 for w, _ in batches)
+    walls = {"pack": [], "canon": []}
+    for i, stage in enumerate(("pack", "canon", "canon", "pack")):
+        sync()
+        if i == 0:
+            kernels.reset_launch_counts()
+        t0 = time.time()
+        for w, v in batches:
+            kwin.pack_canonical_keys_packed(w, v, 31, stage)
+        sync()
+        walls[stage].append(time.time() - t0)
+        if i == 0:
+            launched = kernels.launch_counts()
+    name = "pack_canonical_keys_packed[pack]"
+    if launched[name] != len(batches) or launched[
+            "pack_canonical_keys_packed"]:
+        raise AssertionError(f"the pack pass launched {launched}")
+    stats["launches"][name] = launched[name]
+    stats["ablation_packed"] = dict(batches=len(batches), lanes=lanes,
+                                    walls_s=walls)
+    say(f"phase 3b packed ablation arm: {len(batches)} batches of phase 3's "
+        f"reads, {lanes} lanes, K1 k=31 whole-pass walls (pack, canon, "
+        f"canon, pack): stage pack {walls['pack'][0]:.4f} / "
+        f"{walls['pack'][1]:.4f} s, stage canon {walls['canon'][0]:.4f} / "
+        f"{walls['canon'][1]:.4f} s; launches {name} {launched[name]}")
+
+
 def phase_reference(stats: dict, workdir: str, ks=(31, 63),
                     phase: int = 5) -> None:
     """The smoke count's digest (pinned to kmers_tpu's table), an evicting
@@ -1232,7 +1321,7 @@ def _device_ops(fn) -> dict:
 
 
 def phase_profiled(stats: dict) -> None:
-    """Phase 12, last: the device time of one call of K1, K2 at k=31, K7
+    """Phase 12, last: the device time of one call of K1 (both stages), K2 at k=31, K7
     and K8 at k=63, K10 at seg 64, K4 at 2^25 lanes, K3 with idx at
     2^24 + 2^24 and phase 13's (b) and (c) lookups at each arm, as
     torch.profiler records it over PROFILED_CALLS calls: the call's device
@@ -2033,6 +2122,133 @@ def phase_parity(stats: dict, seed: int, workdir: str) -> None:
         + ", ".join(f"{name} {t:.6f}s" for name, t in walls.items()))
 
 
+def _same_shard_table(a, b) -> bool:
+    """Two shard tables of one form, lane for lane."""
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a.keys, b.keys)) and (
+        not hasattr(a, "counts") or (torch.equal(a.counts, b.counts)
+                                     and a.n_unique == b.n_unique))
+
+
+def phase_mesh2d(stats: dict, workdir: str, seed: int) -> None:
+    """Phase 17: the mesh's second axis, make_mesh(devices=[cuda] * 4,
+    seq_shards=2) on the one card.  The hash counter at k = 31 (compact
+    shard tables: K11) over "d" and over "s" on the first 250,000 reads of
+    phase 3's set; over "s" the super-k-mer counter (k = 31, w = 11: K9,
+    K4) on the first 65,536 of them, the sequence-parallel counter at
+    k = 31 on phase 14's genome, and the lookup at both arms (the merge's
+    K3 with idx and K4) at phase 13's shape (b), bench_configs.py
+    --lookup's table split by owner over the axis's two shards, with its
+    2^20 queries.  Every local shard's table must equal, lane for lane,
+    the one-axis D = 2 run's at the shard's index along the axis (so the
+    replicas over the other axis are equal), with that run's metrics and
+    no overflow; the lookup's answers equal the D = 2 run's and
+    count.lookup's.  Each 2-D call's wall beside the D = 2 call's; the
+    2-D calls must launch K11, K9, K4 and K3 with idx."""
+    import torch
+
+    from kmers_tpu_torch import kernels
+    from kmers_tpu_torch.io import fastx
+    from kmers_tpu_torch.parallel import count as count_ops
+    from kmers_tpu_torch.parallel import mesh as mesh_ops
+    from kmers_tpu_torch.parallel import pipeline
+
+    fastq = os.path.join(workdir, "ecoli_1m.fastq")
+    d, s = MESH2D["shape"]
+    m2d = mesh_ops.make_mesh(devices=[DEVICE] * (d * s), seq_shards=s)
+    m1d = mesh_ops.make_mesh(devices=[DEVICE] * 2)
+    reads = torch.from_numpy(next(iter(fastx.read_kmer_batches(
+        fastq, k=31, batch=MESH2D["reads"], length=150)))).to(DEVICE)
+    genome = torch.from_numpy(seq_parallel_genome(seed, SIZES["genome"])
+                              ).to(DEVICE)
+    route = MESH2D["route_capacity"]
+    runs = (
+        ("hash_k31", "d", lambda m, **kw: pipeline.make_sharded_counter(
+            m, 31, route_capacity=route, **kw), reads),
+        ("hash_k31", "s", lambda m, **kw: pipeline.make_sharded_counter(
+            m, 31, route_capacity=route, **kw), reads),
+        ("superkmer_k31_w11", "s",
+         lambda m, **kw: pipeline.make_superkmer_counter(
+             m, 31, 11, route_capacity=MESH2D["superkmer_capacity"], **kw),
+         reads[:MESH2D["superkmer_reads"]]),
+        ("sequence_parallel_k31", "s",
+         lambda m, **kw: pipeline.make_sequence_parallel_counter(
+             m, 31, route_capacity=int(SEQ_PARALLEL["margin"]
+                                       * SIZES["genome"] / 4), **kw),
+         genome))
+    launched = dict.fromkeys(kernels.KERNELS, 0)
+    results = {}
+
+    def run_2d(fn):
+        """fn() on the 2-D mesh: (its result, wall); its launches counted."""
+        sync()
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        out = fn()
+        sync()
+        wall = time.time() - t0
+        for name, n in kernels.launch_counts().items():
+            launched[name] += n
+        return out, wall
+
+    def run_1d(fn):
+        sync()
+        t0 = time.time()
+        out = fn()
+        sync()
+        return out, time.time() - t0
+
+    for name, axis, make, x in runs:
+        got, wall = run_2d(lambda: make(m2d, axis=axis)(x))
+        want, wall_1d = run_1d(lambda: make(m1d)(x))
+        pos = mesh_ops.axis_positions(m2d, axis)
+        metrics = {m: int(v) for m, v in got.metrics.items()}
+        if not all(_same_shard_table(t, want.table[p])
+                   for t, p in zip(got.table, pos)):
+            raise AssertionError(f"mesh2d {name} over {axis}: a shard table "
+                                 "differs from the D = 2 run's")
+        if metrics != {m: int(v) for m, v in want.metrics.items()} or (
+                metrics["route_overflow"]):
+            raise AssertionError(f"mesh2d {name} over {axis}: metrics "
+                                 f"{metrics} vs the D = 2 run's")
+        results[f"{name} over {axis}"] = dict(wall_s=wall, wall_1d_s=wall_1d,
+                                              metrics=metrics)
+
+    table, queries = _bench_lookup_inputs()
+    valid = torch.ones_like(queries, dtype=torch.bool)
+    split = _split_by_owner(table, 2, LOOKUP["bench_capacity"])
+    local = [split[p] for p in mesh_ops.axis_positions(m2d, "s")]
+    want = count_ops.lookup(table, queries)
+    for arm, merge in (("merge", True), ("binsearch", False)):
+        look = lambda m, **kw: pipeline.make_sharded_lookup(
+            m, query_capacity=MESH2D["query_capacity"], max_k=31,
+            merge_lookup=merge, **kw)
+        (counts, overflow), wall = run_2d(
+            lambda: look(m2d, axis="s")(local, queries, valid))
+        (counts_1d, _), wall_1d = run_1d(
+            lambda: look(m1d)(split, queries, valid))
+        if int(overflow) or not (torch.equal(counts, counts_1d)
+                                 and torch.equal(counts, want)):
+            raise AssertionError(f"mesh2d lookup {arm} over s: overflow "
+                                 f"{int(overflow)}, answers differ")
+        results[f"lookup_{arm} over s"] = dict(wall_s=wall,
+                                               wall_1d_s=wall_1d)
+    for name in ("radix_sort_u64", "minimizer_kernel", "compress_flagged",
+                 "merge_sorted_idx"):
+        if launched[name] == 0:
+            raise AssertionError(f"mesh2d: {name} was not launched")
+    stats["mesh2d"] = dict(results, launches={n: c for n, c in
+                                              launched.items() if c})
+    say(f"phase 17 two-axis mesh ({d}, {s}) on one card ({stats['smi']}): "
+        + "; ".join(f"{label} {r['wall_s']:.3f}s (one-axis D = 2 "
+                    f"{r['wall_1d_s']:.3f}s)" for label, r in results.items())
+        + "; every local shard's table == the D = 2 run's at its index "
+        "along the axis (replicas equal), metrics ==, overflow 0, lookup "
+        f"answers == D = 2 and count.lookup; launches "
+        f"{stats['mesh2d']['launches']}")
+
+
 def seq_parallel_genome(seed: int, g: int):
     """Phase 14's sequence: the seeded [g] genome the reads come from, Ns
     at and beside each of the four shards' cuts."""
@@ -2353,6 +2569,7 @@ def main(argv=None) -> int:
     phase_device(stats)
     phase_kernels(stats, args.seed)
     phase_end_to_end(stats, args.seed, args.workdir, 31, 3)
+    phase_ablation_packed(stats, args.workdir)
     phase_end_to_end(stats, args.seed, args.workdir, 63, 4)
     phase_reference(stats, args.workdir)
     phase_minimizer(stats, args.seed)
@@ -2366,6 +2583,7 @@ def main(argv=None) -> int:
     phase_sharded_wide(stats, args.workdir, args.seed)
     phase_multiprocess(stats, args.workdir, args.seed)
     phase_parity(stats, args.seed, args.workdir)
+    phase_mesh2d(stats, args.workdir, args.seed)
     phase_lookup(stats, args.seed, args.workdir)
     phase_sort_call(sort_inputs)
     phase_profiled(stats)

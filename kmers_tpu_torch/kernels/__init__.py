@@ -19,7 +19,8 @@ KERNELS = ("pack_canonical_keys_packed", "pack_canonical_keys",
            "pack_canonical_hash_wide", "minimizer_kernel",
            "segment_count_keys", "segment_count_keys_wide", "radix_sort_u64",
            # the stage variants, each counted under its own name
-           "pack_canonical_keys[pack]", "minimizer_kernel[hash]")
+           "pack_canonical_keys_packed[pack]", "pack_canonical_keys[pack]",
+           "minimizer_kernel[hash]")
 
 _launches = dict.fromkeys(KERNELS, 0)
 

@@ -42,7 +42,7 @@ _LL = ctypes.c_longlong
 _ULL = ctypes.c_ulonglong
 # name -> (argtypes, restype)
 _SIGNATURES = {
-    "kt_pack_keys_packed": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "kt_pack_keys_packed": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "kt_pack_keys_ascii": ([_P] * 3 + [_I] * 4 + [_P], _I),
     "kt_pack_hash_ascii": ([_P] * 6 + [_I, _I, _I, _ULL, _P], _I),
     "kt_pack_keys_wide": ([_P] * 5 + [_I, _I, _I, _P], _I),

@@ -53,10 +53,11 @@
 // events; block tiles as K8's (128 threads, 1024 lanes between two
 // barriers) were some 7 % slower (PERF.md, section 6).
 //
-// Stage "pack" of K2 (the roofline ablation's compute-light arm of
-// kmers_tpu/kernels/window.py) folds the forward word in place of the
-// canonical one: a template flag, so the reverse complement is never
-// built and the stage-"canon" instance is unchanged.
+// Stage "pack" of K1 and K2 (the roofline ablation's compute-light arm
+// of kmers_tpu/kernels/window.py) folds the forward word in place of the
+// canonical one: a template flag of each kernel, so the reverse
+// complement is never built and the stage-"canon" instances are
+// unchanged.
 //
 // K1 first ran one thread a lane too.  Each lane paid a 64-bit division
 // by L for its row, five bounds-checked loads, its window rebuilt from
@@ -83,7 +84,9 @@
 // K1: a [B, L] batch, L % 32 == 0, 1 <= k <= 31.  Warp (blockIdx.y,
 // threadIdx.y) walks rows; in each it makes the 256-lane chunk blockIdx.x,
 // thread t the 4 lanes from 4 t and the 4 from 128 + 4 t, so that each
-// 16-byte store of the warp covers 512 contiguous bytes.
+// 16-byte store of the warp covers 512 contiguous bytes.  CANON false:
+// stage "pack", the forward words.
+template <bool CANON>
 __global__ void __launch_bounds__(32 * K1_ROWS)
 kt_pack_keys_packed_kernel(const u32* __restrict__ words,
                            const u32* __restrict__ vbits,
@@ -122,7 +125,7 @@ kt_pack_keys_packed_kernel(const u32* __restrict__ words,
       const u64 x = w2 >> sh;
       const u64 nxt = (a >> (2 * k)) | (x << (64 - 2 * k));
       u64 fw = a & mask;
-      u64 rc = kt_revcomp64(fw, k);
+      u64 rc = CANON ? kt_revcomp64(fw, k) : 0;
       const int vq = c0 & 31;
       u32 hi[K1_RUN], lo[K1_RUN];
 #pragma unroll
@@ -130,11 +133,11 @@ kt_pack_keys_packed_kernel(const u32* __restrict__ words,
         if (i) {
           const u64 c = (nxt >> (2 * (i - 1))) & 3;
           fw = (fw >> 2) | (c << (2 * k - 2));
-          rc = ((rc << 2) | (3 - c)) & mask;
+          if (CANON) rc = ((rc << 2) | (3 - c)) & mask;
         }
         const bool valid =
             p0 + i <= L - k && ((vw >> (vq + i)) & need) == need;
-        const u64 canon = fw < rc ? fw : rc;
+        const u64 canon = !CANON || fw < rc ? fw : rc;
         hi[i] = valid ? (u32)(canon >> 32) : KT_INVALID_HI;
         lo[i] = valid ? (u32)canon : 0u;
       }
@@ -298,15 +301,17 @@ kt_pack_hash_ascii_kernel(const uint8_t* __restrict__ reads,
   kt_store_tile<32, K2_WARP_TILE, 4>(planes[w], dst, t0, n, lane);
 }
 
+// pack: 0 stage "canon", 1 stage "pack".
 KT_EXPORT int kt_pack_keys_packed(const void* words, const void* vbits,
                                   void* out_hi, void* out_lo, int B, int L,
-                                  int k, void* stream) {
+                                  int k, int pack, void* stream) {
   if ((long long)B * L == 0) return 0;
   const long long rows = (B + K1_ROWS - 1) / K1_ROWS;
   const dim3 grid((L + K1_CHUNK - 1) / K1_CHUNK,
                   (unsigned)(rows < 65535 ? rows : 65535));
-  kt_pack_keys_packed_kernel<<<grid, dim3(32, K1_ROWS), 0,
-                               (cudaStream_t)stream>>>(
+  auto kernel = pack ? kt_pack_keys_packed_kernel<false>
+                     : kt_pack_keys_packed_kernel<true>;
+  kernel<<<grid, dim3(32, K1_ROWS), 0, (cudaStream_t)stream>>>(
       (const u32*)words, (const u32*)vbits, (u32*)out_hi, (u32*)out_lo, B, L,
       k);
   return (int)cudaGetLastError();

@@ -4,10 +4,9 @@ Counterparts of ``kmers_tpu/kernels/window.py``'s
 ``pack_canonical_keys_packed`` (K1) and ``pack_canonical_keys`` (K2),
 k <= 31: (key_hi, key_lo) int32 planes [B, L] holding uint32 bit
 patterns; lane p is the window that starts at base p; invalid lanes are
-exactly (0x80000000, 0).  K2 takes JAX's ``stage``: "canon" (the
+exactly (0x80000000, 0).  Both take JAX's ``stage``: "canon" (the
 default, the canonical word) or "pack" (the forward word, the roofline
-ablation's compute-light arm); K1 only the canonical word, as no caller
-asks for its "pack" stage.  (The TPU's K1 emits a permuted "q-order";
+ablation's compute-light arm).  (The TPU's K1 emits a permuted "q-order";
 the counting consumer treats lanes as a multiset, and the port emits
 plain p-order.)  And of ``pack_canonical_hash`` (K5, the hash emitter),
 k <= 32: canonical word, its mixer hash and a valid byte.  CUDA source:
@@ -25,14 +24,22 @@ from ..ops import kmer
 from . import (_build, check_stage, check_tensor, count_launch, on_cuda,
                variant)
 
-STAGES = ("canon", "pack")     # K2's stages; "pack" emits fw
+STAGES = ("canon", "pack")     # K1's and K2's stages; "pack" emits fw
+
+
+def _stage_words(win, stage: str):
+    """The folded words of a stage: canonical, or forward at "pack"."""
+    words = kmer.canonical_word(win.fw, win.rc) if stage == "canon" else win.fw
+    return u64.fold_invalid(words, win.valid)
 
 
 def pack_canonical_keys_packed_plain(words: torch.Tensor,
-                                     validbits: torch.Tensor, k: int):
-    """Plain version of K1: the packed windows of ops.kmer, folded."""
-    win = kmer.kmer_windows_packed(words, validbits, k)
-    return u64.fold_invalid(kmer.canonical_word(win.fw, win.rc), win.valid)
+                                     validbits: torch.Tensor, k: int,
+                                     stage: str = "canon"):
+    """Plain version of K1: the packed windows of ops.kmer, folded; the
+    forward words at stage "pack"."""
+    check_stage(stage, STAGES, "pack_canonical_keys_packed")
+    return _stage_words(kmer.kmer_windows_packed(words, validbits, k), stage)
 
 
 def pack_canonical_keys_plain(reads: torch.Tensor, k: int,
@@ -40,17 +47,17 @@ def pack_canonical_keys_plain(reads: torch.Tensor, k: int,
     """Plain version of K2: the ASCII windows of ops.kmer, folded; the
     forward words at stage "pack"."""
     check_stage(stage, STAGES, "pack_canonical_keys")
-    win = kmer.kmer_windows(reads, k)
-    words = kmer.canonical_word(win.fw, win.rc) if stage == "canon" else win.fw
-    return u64.fold_invalid(words, win.valid)
+    return _stage_words(kmer.kmer_windows(reads, k), stage)
 
 
 def pack_canonical_keys_packed(words: torch.Tensor, validbits: torch.Tensor,
-                               k: int):
+                               k: int, stage: str = "canon"):
     """K1: [B, L/16] int32 code words + [B, L/32] int32 validity bitmaps
     (io.fastx.read_packed_batches layout, L % 32 == 0) -> folded
-    (key_hi, key_lo) [B, L] int32 (kmers_tpu/kernels/window.py:338)."""
+    (key_hi, key_lo) [B, L] int32 (kmers_tpu/kernels/window.py:338); the
+    forward words at stage "pack"."""
     check_k_range(k, 1, NARROW_MAX_K, "pack_canonical_keys_packed")
+    check_stage(stage, STAGES, "pack_canonical_keys_packed")
     if words.dim() != 2:
         raise ValueError(f"words must be [B, L/16], got {tuple(words.shape)}")
     B, nw = words.shape
@@ -60,15 +67,16 @@ def pack_canonical_keys_packed(words: torch.Tensor, validbits: torch.Tensor,
     check_tensor(words, "words", torch.int32, (B, nw))
     check_tensor(validbits, "validbits", torch.int32, (B, L // 32))
     if not on_cuda(words, validbits):
-        return pack_canonical_keys_packed_plain(words, validbits, k)
+        return pack_canonical_keys_packed_plain(words, validbits, k, stage)
     hi = torch.empty((B, L), dtype=torch.int32, device=words.device)
     lo = torch.empty_like(hi)
     with torch.cuda.device(words.device):
         code = _build.lib().kt_pack_keys_packed(
             words.data_ptr(), validbits.data_ptr(), hi.data_ptr(),
-            lo.data_ptr(), B, L, k, torch.cuda.current_stream().cuda_stream)
+            lo.data_ptr(), B, L, k, STAGES.index(stage),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(code, "pack_canonical_keys_packed")
-    count_launch("pack_canonical_keys_packed")
+    count_launch(variant("pack_canonical_keys_packed", stage, "canon"))
     return hi, lo
 
 

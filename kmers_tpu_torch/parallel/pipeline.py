@@ -32,6 +32,10 @@ A batch becomes one table, in the form `aggregate` names (default from
                   search or by merge (count.lookup_merge: K3 with its
                   source-index plane, K4), and carried home;
                   lookup_sharded looks each query up in its owner's table.
+  two-axis mesh   every sharded factory takes `axis` ("d" by default):
+                  the step runs its one-axis body over each group of that
+                  axis (mesh.axis_groups), as JAX's shard_map over one axis
+                  of a ("d", "s") mesh runs on every device.
 
 A sharded step takes this process's rows and returns one table per local
 shard (on its device) and its metrics summed over every shard of the
@@ -308,22 +312,43 @@ def _sharded_count_body_packed(words_local, validbits_local,
         sum(w.shape[0] for w in words_local), **kw)
 
 
-def _sharded_counter(mesh, k: int, route_capacity: int, seed: int,
-                     route_passes: int, packed: bool, aggregate: str):
-    body = _sharded_count_body_packed if packed else _sharded_count_body
+def _over_axis(mesh, axis: str, body):
+    """fn(*batch): each batch split over `axis` (mesh.batch_sharding), then
+    body(*blocks, mesh=group mesh) -> CountResult over every group of the
+    axis that holds this process's shards, each group's blocks and its
+    one-axis mesh.  One table per local shard, on its device: its group's
+    table at its index along the axis, so replicas over the other axis are
+    equal; the metrics are the first group's, summed over it (JAX's psum
+    over the axis), on mesh[0].  On a one-axis mesh, body over the mesh."""
     mesh = mesh_ops.as_mesh(mesh)
+    groups = mesh_ops.axis_groups(mesh, axis)
 
     def fn(*batch) -> CountResult:
-        return body(*(mesh_ops.batch_sharding(x, mesh) for x in batch),
-                    mesh=mesh, k=k, capacity=route_capacity, seed=seed,
-                    passes=route_passes, aggregate=aggregate)
+        blocks = [mesh_ops.batch_sharding(x, mesh, axis) for x in batch]
+        tables, metrics = [None] * mesh.n_local, None
+        for g in groups:
+            res = body(*([b[i] for i in g.local] for b in blocks),
+                       mesh=g.mesh)
+            for i, t in zip(g.local, res.table):
+                tables[i] = t
+            metrics = res.metrics if metrics is None else metrics
+        return CountResult(tables, metrics)
 
     return fn
 
 
+def _sharded_counter(mesh, k: int, route_capacity: int, seed: int,
+                     route_passes: int, packed: bool, aggregate: str,
+                     axis: str):
+    body = _sharded_count_body_packed if packed else _sharded_count_body
+    return _over_axis(mesh, axis, lambda *blocks, mesh: body(
+        *blocks, mesh=mesh, k=k, capacity=route_capacity, seed=seed,
+        passes=route_passes, aggregate=aggregate))
+
+
 def make_sharded_counter(mesh, k: int, *, route_capacity: int, seed: int = 0,
-                         route_passes: int = 1, packed: bool = False,
-                         aggregate: str = "compact"):
+                         axis: str = "d", route_passes: int = 1,
+                         packed: bool = False, aggregate: str = "compact"):
     """A sharded counting step over `mesh` (k <= 32): fn(reads [B, L]
     uint8), or fn(words [B, L/16], validbits [B, L/32]) with packed=True,
     -> CountResult with one table per local shard, holding only the k-mers
@@ -336,18 +361,20 @@ def make_sharded_counter(mesh, k: int, *, route_capacity: int, seed: int = 0,
     The windows are the plain ones of ops.kmer on every device, as in the
     JAX package (pipeline.py:224-243).  At k = 32 "runlength" gives the
     compact table too, as in the JAX package (pipeline.py:206-209).
+    On a two-axis mesh the batch splits over `axis` and each local shard
+    holds the table of its index along it (_over_axis).
 
     route_passes > 1 re-routes bucket overflow in extra exchanges (exact
     while every destination load <= passes * capacity); what still
     overflows is counted in metrics["route_overflow"]."""
     _check_sharded(aggregate, k, "make_sharded_counter", hi=WORD_K)
     return _sharded_counter(mesh, k, route_capacity, seed, route_passes,
-                            packed, aggregate)
+                            packed, aggregate, axis)
 
 
 def make_sharded_counter_wide(mesh, k: int, *, route_capacity: int,
-                              seed: int = 0, route_passes: int = 1,
-                              packed: bool = False,
+                              seed: int = 0, axis: str = "d",
+                              route_passes: int = 1, packed: bool = False,
                               aggregate: str = "compact"):
     """make_sharded_counter for 33 <= k <= 64 (kmers_tpu/parallel/
     pipeline.py:464-499): 128-bit words through route_wide (17 wire bytes
@@ -357,7 +384,7 @@ def make_sharded_counter_wide(mesh, k: int, *, route_capacity: int,
     _check_sharded(aggregate, k, "make_sharded_counter_wide", WORD_K + 1,
                    MAX_WIDE_K)
     return _sharded_counter(mesh, k, route_capacity, seed, route_passes,
-                            packed, aggregate)
+                            packed, aggregate, axis)
 
 
 def gather_tables(tables, mesh):
@@ -384,7 +411,8 @@ def gather_tables(tables, mesh):
         keys, mesh_ops.gather([s.counts for s in tables], mesh), n_unique)
 
 
-def global_table(result: CountResult, mesh=None) -> count_ops.CountTable:
+def global_table(result: CountResult, mesh=None,
+                 axis: str = "d") -> count_ops.CountTable:
     """One key-sorted CountTable from a sharded result's per-shard tables
     of any form, on the first shard's device: merge_many's weighted
     re-count (kmers_tpu/parallel/pipeline.py:299-313).  It re-counts
@@ -393,9 +421,13 @@ def global_table(result: CountResult, mesh=None) -> count_ops.CountTable:
     process's shards only: pass its mesh, and every process's tables are
     gathered (a collective: every process calls it) and every process
     gets the whole table.  Under a process group without a mesh it
-    raises rather than merge a part."""
+    raises rather than merge a part.  A two-axis result holds replicas:
+    pass its mesh and axis, and one group's tables are merged."""
     tables = result.table
-    if mesh is not None and mesh_ops.as_mesh(mesh).process_count > 1:
+    if mesh is not None:
+        group = mesh_ops.axis_groups(mesh, axis)[0]
+        tables, mesh = [tables[i] for i in group.local], group.mesh
+    if mesh is not None and mesh.process_count > 1:
         tables = [gather_tables(tables, mesh)]
     elif mesh is None and mesh_ops.process_count() > 1:
         raise ValueError("global_table of a multi-process result needs its "
@@ -406,7 +438,8 @@ def global_table(result: CountResult, mesh=None) -> count_ops.CountTable:
 # -- sequence-parallel counting (one long sequence) ---------------------------
 
 def make_sequence_parallel_counter(mesh, k: int, *, route_capacity: int,
-                                   seed: int = 0, route_passes: int = 1):
+                                   seed: int = 0, axis: str = "d",
+                                   route_passes: int = 1):
     """Count the k-mers of ONE long sequence split contiguously over
     `mesh` (kmers_tpu/parallel/pipeline.py:509-556): fn(seq [G] uint8
     ASCII, G divisible by the number of shards) -> CountResult with, per
@@ -417,22 +450,25 @@ def make_sequence_parallel_counter(mesh, k: int, *, route_capacity: int,
     canonical words route as make_sharded_counter's do.  On a
     multi-process mesh, seq is this process's contiguous part of the
     sequence, G / P bases (process p's the p-th), or make_global_array's
-    value of it."""
+    value of it.  On a two-axis mesh the sequence splits over `axis`
+    (this process's part: the blocks of the `axis` indices it holds)."""
     check_k_range(k, 1, MAX_WIDE_K, "make_sequence_parallel_counter")
-    mesh = mesh_ops.as_mesh(mesh)
     windows = (halo_ops.sharded_windows_wide if k > WORD_K
                else halo_ops.sharded_windows)
 
-    def fn(seq) -> CountResult:
-        if isinstance(seq, torch.Tensor):
-            seq = seq.reshape(-1)
-        blocks = mesh_ops.batch_sharding(seq, mesh)
+    def body(blocks, mesh) -> CountResult:
         res = _windows_tail(windows(blocks, k, mesh), 1, mesh=mesh, k=k,
                             capacity=route_capacity, seed=seed,
                             passes=route_passes, aggregate="compact")
         return CountResult(res.table, {
             m: res.metrics[m]
             for m in ("kmers_emitted", "route_overflow", "route_rerouted")})
+
+    step = _over_axis(mesh, axis, body)
+
+    def fn(seq) -> CountResult:
+        return step(seq.reshape(-1) if isinstance(seq, torch.Tensor)
+                    else seq)
 
     return fn
 
@@ -563,8 +599,8 @@ def _prefilter_superkmers(owner: torch.Tensor, start: torch.Tensor, planes,
 
 
 def make_superkmer_counter(mesh, k: int, w: int, *, route_capacity: int,
-                           seed: int = 0, route_passes: int = 1,
-                           aggregate: str = "unit"):
+                           seed: int = 0, axis: str = "d",
+                           route_passes: int = 1, aggregate: str = "unit"):
     """A sharded counting step with super-k-mer routing (k <= 31), the
     `--partition minimizer` pipeline: fn(reads [B, L] uint8) ->
     CountResult with one table per shard (unit, of [passes * D * C, k-w+1]
@@ -584,12 +620,10 @@ def make_superkmer_counter(mesh, k: int, w: int, *, route_capacity: int,
     check_k_range(w, 1, k, "make_superkmer_counter (w)")
     nwords, meta_off, fold = _superkmer_layout(k, w)
     n_planes = nwords if fold else nwords + 1
-    mesh = mesh_ops.as_mesh(mesh)
-    d = mesh.n_shards
 
-    def fn(reads) -> CountResult:
+    def body(blocks, mesh) -> CountResult:
+        d = mesh.n_shards
         owners, starts, planes, kmers, n_sk, cap_dropped = ([] for _ in range(6))
-        blocks = mesh_ops.batch_sharding(reads, mesh)
         for r in blocks:
             owner, start, pl, km = emit_superkmers(r, k, w, seed)
             n_sk.append(start.sum())
@@ -627,14 +661,14 @@ def make_superkmer_counter(mesh, k: int, w: int, *, route_capacity: int,
         }
         return CountResult(tables, metrics)
 
-    return fn
+    return _over_axis(mesh, axis, body)
 
 
 # -- sharded minimizer bucketing (BASELINE config 4) ---------------------------
 
 def make_sharded_minimizer_counter(mesh, k: int, w: int, *,
                                    route_capacity: int, seed: int = 0,
-                                   use_lex: bool = False,
+                                   use_lex: bool = False, axis: str = "d",
                                    route_passes: int = 1):
     """Minimizer bucketing over `mesh` (kmers_tpu/parallel/pipeline.py:561):
     fn(reads [B, L] uint8) -> CountResult with, per shard, a compact
@@ -650,11 +684,9 @@ def make_sharded_minimizer_counter(mesh, k: int, w: int, *,
     check_k_range(w, 1, k, "make_sharded_minimizer_counter (w)")
     hash_fn = (hash_ops.lex_hash_fn(w) if use_lex
                else hash_ops.mix_hash_fn(seed))
-    mesh = mesh_ops.as_mesh(mesh)
 
-    def fn(reads: torch.Tensor) -> CountResult:
-        mms = [mini_ops.minimizer_stream(r, k, w, hash_fn)
-               for r in mesh_ops.batch_sharding(reads, mesh)]
+    def body(blocks, mesh) -> CountResult:
+        mms = [mini_ops.minimizer_stream(r, k, w, hash_fn) for r in blocks]
         routed = route_ops.route([m.word for m in mms],
                                  [m.valid for m in mms], mesh,
                                  route_capacity, seed, passes=route_passes)
@@ -666,13 +698,13 @@ def make_sharded_minimizer_counter(mesh, k: int, w: int, *,
         return CountResult([count_ops.count_words(r.words, r.valid, max_k=w)
                             for r in routed], metrics)
 
-    return fn
+    return _over_axis(mesh, axis, body)
 
 
 # -- distributed lookup service (kmers_tpu/parallel/pipeline.py:911-970) -------
 
 def make_sharded_lookup(mesh, *, query_capacity: int, seed: int = 0,
-                        max_k: Optional[int] = None,
+                        axis: str = "d", max_k: Optional[int] = None,
                         merge_lookup: Optional[bool] = None):
     """A query step over per-shard count tables: fn(tables, queries,
     valid) -> (counts int32 [Q] on mesh[0], overflow), counts aligned
@@ -691,17 +723,18 @@ def make_sharded_lookup(mesh, *, query_capacity: int, seed: int = 0,
     package off a TPU, and on the card because chip_smoke.py's phase 13
     measured it faster at both of its shapes; PERF.md section 6),
     and the answers ride home.  merge_lookup=True with max_k > 31 raises,
-    where the JAX package answers wrongly: the merge keys on bit 63."""
+    where the JAX package answers wrongly: the merge keys on bit 63.
+    On a two-axis mesh the queries split over `axis`, the tables are those
+    of a counter over the same axis, and every group of the axis answers
+    (the first group's answers and overflow are returned)."""
     use_merge = bool(merge_lookup)
-    mesh = mesh_ops.as_mesh(mesh)
     if use_merge and max_k is not None and max_k > NARROW_MAX_K:
         raise ValueError(f"merge_lookup takes k <= {NARROW_MAX_K} keys, "
                          f"max_k={max_k}")
 
-    def fn(tables, queries: torch.Tensor, valid: torch.Tensor):
-        routed, reply = route_ops.route_queries(
-            mesh_ops.batch_sharding(queries, mesh),
-            mesh_ops.batch_sharding(valid, mesh), mesh, query_capacity, seed)
+    def body(tables, queries, valid, mesh):
+        routed, reply = route_ops.route_queries(queries, valid, mesh,
+                                                query_capacity, seed)
         answers = []
         for table, r in zip(tables, routed):
             if use_merge:
@@ -711,6 +744,16 @@ def make_sharded_lookup(mesh, *, query_capacity: int, seed: int = 0,
             answers.append(torch.where(r.valid, got, -1))
         counts = torch.cat([c.to(mesh[0]) for c in reply(answers)])
         return counts, mesh_ops.psum([r.overflow for r in routed], mesh)
+
+    mesh = mesh_ops.as_mesh(mesh)
+    groups = mesh_ops.axis_groups(mesh, axis)
+
+    def fn(tables, queries: torch.Tensor, valid: torch.Tensor):
+        q, v = (mesh_ops.batch_sharding(x, mesh, axis) for x in (queries, valid))
+        # every group answers, as every JAX device does; each group's
+        # answers are this process's queries'
+        return [body(*([x[i] for i in g.local] for x in (tables, q, v)),
+                     g.mesh) for g in groups][0]
 
     return fn
 

@@ -314,15 +314,16 @@ class ShardedStreamingCounter(StreamingCounter):
     same table (JAX's replicated table), and the committed counters are
     global.  save, to_pairs and lookup consolidate first, so every process
     calls them, and each save writes the whole table, as the JAX
-    package's does on every process."""
+    package's does on every process.  The mesh has one axis, as the JAX
+    package's counter's (a two-axis mesh raises ValueError)."""
 
     def __init__(self, k, capacity: int, merge_every: int = 16, *,
                  mesh=None, n_devices: Optional[int] = None,
                  route_capacity: int = 4096, route_passes: int = 1,
                  seed: Optional[int] = None, partition: str = "hash",
                  minimizer_w: Optional[int] = None):
-        mesh = (mesh_ops.as_mesh(mesh) if mesh is not None
-                else mesh_ops.make_mesh(n_devices))
+        mesh = (mesh_ops.one_axis(mesh, "ShardedStreamingCounter")
+                if mesh is not None else mesh_ops.make_mesh(n_devices))
         # the table lives on the first local device of every process
         super().__init__(k, capacity, merge_every, device=mesh[0])
         if partition not in ("hash", "minimizer"):

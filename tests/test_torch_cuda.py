@@ -535,6 +535,78 @@ def test_packed_window_kernel_matches_plain(card, B):
                 L, k)
 
 
+@pytest.mark.parametrize("k", range(1, 32))
+def test_packed_pack_stage_matches_plain(card, k):
+    """K1 at stage "pack" (the forward words) on every lane, at every k:
+    rows on and off the 256-lane chunk, B off the 8-row block, Ns at both
+    row edges; counted under its own launch name."""
+    rng = np.random.default_rng(100 + k)
+    for B, L in ((13, 32), (64, 288), (5, 1024)):
+        reads = np.frombuffer(b"ACGTacgt", dtype=np.uint8)[
+            rng.integers(0, 8, size=(B, L))].copy()
+        reads[::3, :5] = ord("N")
+        reads[1::3, L - 7:] = ord("N")
+        words, vbits = fastx.pack_batch_np(reads)
+        w = torch.from_numpy(words.view(np.int32)).to(card)
+        v = torch.from_numpy(vbits.view(np.int32)).to(card)
+        kernels.reset_launch_counts()
+        got = twin.pack_canonical_keys_packed(w, v, k, "pack")
+        assert kernels.launch_counts()["pack_canonical_keys_packed[pack]"] == 1
+        assert equal_all(got, twin.pack_canonical_keys_packed_plain(
+            w, v, k, "pack")), (B, L)
+
+
+def same_table(a, b) -> bool:
+    return equal_all(a.keys, b.keys) and (
+        not hasattr(a, "counts") or (torch.equal(a.counts, b.counts)
+                                     and a.n_unique == b.n_unique))
+
+
+@pytest.mark.parametrize("axis", ["d", "s"])
+def test_two_axis_mesh_on_card_equals_the_one_axis_run(card, axis):
+    """A (2, 2) mesh on the one card, over each axis: the hash counter
+    (k = 31, K11), the super-k-mer counter (K9, K4), the sequence-parallel
+    counter and the lookup's merge arm (K3 with idx) give every local
+    shard the table of the one-axis D = 2 run at its index along the axis,
+    and that run's metrics and answers."""
+    from kmers_tpu_torch.parallel import mesh, pipeline
+
+    m22 = mesh.make_mesh(devices=[card] * 4, seq_shards=2)
+    m2 = mesh.make_mesh(devices=[card] * 2)
+    pos = mesh.axis_positions(m22, axis)
+    reads = run_reads(card, 64, 150, 7)
+    seq = run_reads(card, 1, 4096, 8).reshape(-1)
+    steps = (
+        (lambda m, **kw: pipeline.make_sharded_counter(
+            m, 31, route_capacity=8192, **kw), reads),
+        (lambda m, **kw: pipeline.make_superkmer_counter(
+            m, 31, 11, route_capacity=1024, **kw), reads),
+        (lambda m, **kw: pipeline.make_sequence_parallel_counter(
+            m, 31, route_capacity=2048, **kw), seq))
+    kernels.reset_launch_counts()
+    for make, x in steps:
+        got, want = make(m22, axis=axis)(x), make(m2)(x)
+        assert all(same_table(t, want.table[p])
+                   for t, p in zip(got.table, pos))
+        assert {n: int(v) for n, v in got.metrics.items()} == {
+            n: int(v) for n, v in want.metrics.items()}
+        assert int(got.metrics["route_overflow"]) == 0
+    tables = pipeline.make_sharded_counter(m22, 31, route_capacity=8192,
+                                           axis=axis)(reads).table
+    words, valid = pipeline.canonical_kmers(reads, 31)
+    words, valid = words.reshape(-1), valid.reshape(-1)
+    look = lambda m, t, **kw: pipeline.make_sharded_lookup(
+        m, query_capacity=8192, max_k=31, merge_lookup=True, **kw)(
+            t, words, valid)
+    got = look(m22, tables, axis=axis)
+    want = look(m2, [tables[pos.index(p)] for p in range(2)])
+    assert torch.equal(got[0], want[0]) and int(got[1]) == 0
+    launched = kernels.launch_counts()
+    for name in ("radix_sort_u64", "minimizer_kernel", "compress_flagged",
+                 "merge_sorted_idx"):
+        assert launched[name] > 0, name
+
+
 @pytest.mark.parametrize("n", [0, 1, 2, 4095, 4096, 4097, 1 << 20, 1_000_003])
 def test_radix_sort_kernel_matches_plain(card, n):
     """K11 against torch.sort of the unsigned words: full 64-bit keys with

@@ -6,7 +6,9 @@ one-process D-shard run on the 8-device CPU mesh of tests/conftest.py (the
 same seeded inputs, capacities and seeds), the sequence-parallel tables
 across the cut between the processes, and the streaming tables at
 k = 31, 32, 63 and 64 against the port's one-process D-shard counter
-(npz_digest) and kmers_tpu's (to_pairs).  Exact integers, zero
+(npz_digest) and kmers_tpu's (to_pairs); and a two-axis (2, 2) mesh
+over two processes, the hash and sequence-parallel counters over each
+axis against kmers_tpu's one-process (2, 2) run.  Exact integers, zero
 tolerance.  Every spawn runs under a timeout, and every process group
 under a 60 s one, so that a hang fails a test instead of the suite."""
 
@@ -21,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec
 
 from kmers_tpu.parallel import mesh as jmesh
 from kmers_tpu.parallel import pipeline as jpipe
@@ -307,6 +310,100 @@ def test_missing_peer_fails_within_the_group_timeout(tmp_path):
          f"file://{tmp_path / 'alone.store'}"], tmp_path, "alone")],
         timeout=120)[0]
     assert rc != 0, text[-2000:]
+
+
+# -- a two-axis mesh across the processes --------------------------------------------
+
+MESH2D = r"""
+import sys
+import numpy as np
+import torch
+from kmers_tpu_torch import dryrun
+from kmers_tpu_torch.parallel import mesh, pipeline
+arg = lambda name: sys.argv[sys.argv.index(name) + 1]
+rank = int(arg("--rank"))
+mesh.init_distributed(arg("--init"), 2, rank, timeout=60)
+m = mesh.make_mesh(devices=["cpu"] * 2, seq_shards=2)
+data, out = dryrun.inputs(0), {}
+
+
+def part(x, axis):
+    # this process's rows along the axis: the blocks of its shards' indices
+    pos = mesh.axis_positions(m, axis)
+    per = x.shape[0] // m.shape[axis]
+    return torch.from_numpy(x[min(pos) * per:(max(pos) + 1) * per])
+
+
+for axis in ("d", "s"):
+    for name, res in (
+            ("count", pipeline.make_sharded_counter(
+                m, dryrun.K, axis=axis, **dryrun.COUNT)(
+                    part(data["reads"], axis))),
+            ("seq", pipeline.make_sequence_parallel_counter(
+                m, dryrun.SEQ_KS[0], route_capacity=dryrun.CONTIG // 2,
+                axis=axis)(part(data["contig"], axis)))):
+        for local, t in enumerate(res.table):
+            key = f"{name}_{axis}_{local}"
+            for i, plane in enumerate(t.keys):
+                out[f"{key}_keys{i}"] = plane.numpy()
+            out[f"{key}_counts"] = t.counts.numpy()
+            out[f"{key}_n_unique"] = t.n_unique
+        for metric, value in res.metrics.items():
+            out[f"{name}_{axis}_m_{metric}"] = int(value)
+np.savez(arg("--out") + f".rank{rank}.npz", **out)
+print("MESH2D", [len(mesh.axis_groups(m, a)) for a in ("d", "s")],
+      [g.mesh.process_count for a in ("d", "s") for g in mesh.axis_groups(m, a)])
+"""
+
+
+@pytest.fixture(scope="module")
+def mesh2d(tmp_path_factory):
+    """Two ranks of two CPU shards each on a global (2, 2) mesh: rank r's
+    arrays and output.  Over "d" every group spans both processes, over
+    "s" each group lies inside one."""
+    tmp = tmp_path_factory.mktemp("mesh2d")
+    done = finish(spawn(["-c", MESH2D, "--out", str(tmp / "m")], tmp,
+                        "mesh2d"), timeout=180)
+    for rc, text in done:
+        assert rc == 0, text[-3000:]
+    return [(dict(np.load(tmp / f"m.rank{r}.npz")), done[r][1])
+            for r in (0, 1)]
+
+
+@pytest.mark.parametrize("name", ["count", "seq"])
+@pytest.mark.parametrize("axis", ["d", "s"])
+def test_two_axis_mesh_across_processes_matches_jax(mesh2d, data, axis,
+                                                    name):
+    """The hash counter (k = 21) and the sequence-parallel counter
+    (k = 31) over each axis of a (2, 2) mesh of two processes: every
+    local shard holds JAX's one-process (2, 2) table at its index along
+    the axis, and both ranks hold JAX's psum'd metrics."""
+    jm = jmesh.make_mesh(4, seq_shards=2)
+    put2 = lambda a: jax.device_put(jnp.asarray(a),
+                                    NamedSharding(jm, PartitionSpec(axis)))
+    if name == "count":
+        jres = jpipe.make_sharded_counter(jm, dryrun.K, axis=axis,
+                                          **dryrun.COUNT)(put2(data["reads"]))
+    else:
+        jres = jpipe.make_sequence_parallel_counter(
+            jm, dryrun.SEQ_KS[0], route_capacity=dryrun.CONTIG // 2,
+            axis=axis)(put2(data["contig"]))
+    planes = [np.asarray(p).reshape(2, -1) for p in jax_planes(jres.table)]
+    counts = np.asarray(jres.table.counts).reshape(2, -1)
+    n_unique = np.asarray(jres.table.n_unique).reshape(-1)
+    for rank, (z, out) in enumerate(mesh2d):
+        assert out.strip().splitlines()[-1] == "MESH2D [2, 1] [2, 2, 1]"
+        for local in (0, 1):
+            g = 2 * rank + local
+            pos = g // 2 if axis == "d" else g % 2
+            key = f"{name}_{axis}_{local}"
+            for i, jp in enumerate(planes):
+                np.testing.assert_array_equal(
+                    z[f"{key}_keys{i}"].view(np.uint32), jp[pos])
+            np.testing.assert_array_equal(z[f"{key}_counts"], counts[pos])
+            assert int(z[f"{key}_n_unique"]) == int(n_unique[pos])
+        assert_metrics(z, f"{name}_{axis}", jres.metrics)
+        assert int(z[f"{name}_{axis}_m_route_overflow"]) == 0
 
 
 # -- one process: no process group ---------------------------------------------------

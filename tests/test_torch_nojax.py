@@ -7,8 +7,9 @@ runs on the CPU at k = 15 (on one device, and
 sharded over two CPU shards by hash and by minimizer), k = 32, k = 63 and
 k = 64 (k = 32 and 63 sharded over two CPU shards too); the sharded
 lookup service answers over two CPU shards at both
-of its arms; the multi-process mesh's functions import, and
-kmers_tpu_torch.dryrun runs every sharded pipeline over two CPU shards.
+of its arms; the multi-process mesh's functions import,
+kmers_tpu_torch.dryrun runs every sharded pipeline over two CPU shards,
+and a two-axis (2, 2) mesh counts over each of its axes.
 The sources neither import nor name a path into ``kmers_tpu/``."""
 
 import ast
@@ -85,6 +86,12 @@ from kmers_tpu_torch.parallel.mesh import (
 assert (process_count(), process_index(), local_read_slice(5)) == (
     1, 0, slice(0, 5))
 assert len(dryrun.run(m2)["checks"]) == 12
+m22 = mesh.make_mesh(devices=["cpu"] * 4, seq_shards=2)
+assert m22.shape == {"d": 2, "s": 2} and mesh.process_local_batch(5, m22) == 3
+for axis in ("d", "s"):
+    res = pipeline.make_sharded_counter(m22, 15, route_capacity=2048,
+                                        axis=axis)(rows)
+    assert pipeline.global_table(res, m22, axis).n_unique == whole.n_unique
 from kmers_tpu_torch import compat, profiling, utils
 from kmers_tpu_torch.ops import generic, seqvector
 sv = seqvector.SeqVector.from_str("ACGT" * 20 + "TTG", device="cpu")

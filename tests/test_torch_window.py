@@ -64,6 +64,33 @@ def test_pack_stage_plain_matches_pallas(k):
         np.testing.assert_array_equal(as_u32(lo), np.asarray(want_lo))
 
 
+@pytest.mark.parametrize("k", [1, 15, 16, 17, 31])
+def test_packed_pack_stage_matches_pallas(k):
+    """K1 at stage "pack" (the forward word folded in place of the
+    canonical one), wrapper and plain version, every lane through
+    qspace_positions, at rows of 128 and 256 bases with Ns; invalid lanes
+    exactly (0x80000000, 0)."""
+    for L in (128, 256):
+        reads = make_reads(900 + k + L, 8, L)
+        words, vbits = pack_batch_np(reads)
+        want_hi, want_lo = jwin.pack_canonical_keys_packed(
+            jnp.asarray(words), jnp.asarray(vbits), k, stage="pack",
+            block_rows=8, interpret=True)
+        w = torch.from_numpy(words.view(np.int32))
+        v = torch.from_numpy(vbits.view(np.int32))
+        p_of_q = jwin.qspace_positions(L)
+        for hi, lo in (twin.pack_canonical_keys_packed(w, v, k, "pack"),
+                       twin.pack_canonical_keys_packed_plain(w, v, k,
+                                                             "pack")):
+            np.testing.assert_array_equal(as_u32(hi)[:, p_of_q],
+                                          np.asarray(want_hi))
+            np.testing.assert_array_equal(as_u32(lo)[:, p_of_q],
+                                          np.asarray(want_lo))
+        invalid = as_u32(hi) == 0x80000000
+        assert invalid.any() and (~invalid).any()
+        assert not as_u32(lo)[invalid].any()
+
+
 def test_wrappers_take_the_plain_version_on_cpu():
     reads = make_reads(9, 4, 64)
     words, vbits = pack_batch_np(reads)
@@ -79,6 +106,11 @@ def test_wrappers_take_the_plain_version_on_cpu():
     got = twin.pack_canonical_keys(r, 21, "pack")
     want = twin.pack_canonical_keys_plain(r, 21, "pack")
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    got = twin.pack_canonical_keys_packed(w, v, 21, "pack")
+    want = twin.pack_canonical_keys_packed_plain(w, v, 21, "pack")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # the packed and ASCII forward keys are the same lanes
+    assert torch.equal(got[1], twin.pack_canonical_keys(r, 21, "pack")[1])
     # a CPU tensor runs no kernel, so nothing is counted
     assert set(kernels.launch_counts().values()) == {0}
     # the packed and ASCII keys are the same lanes
@@ -104,9 +136,15 @@ def test_wrappers_check_their_inputs():
 
 def test_wrappers_reject_an_unknown_stage():
     reads = torch.from_numpy(make_reads(2, 2, 64))
+    words, vbits = (torch.from_numpy(a.view(np.int32))
+                    for a in pack_batch_np(reads.numpy()))
     for call in (lambda: twin.pack_canonical_keys(reads, 5, "full"),
                  lambda: twin.pack_canonical_keys_plain(reads, 5, "hash"),
                  lambda: twin.pack_canonical_keys(reads, 5, "Pack"),
-                 lambda: twin.pack_canonical_keys_plain(reads, 5, "")):
+                 lambda: twin.pack_canonical_keys_plain(reads, 5, ""),
+                 lambda: twin.pack_canonical_keys_packed(words, vbits, 5,
+                                                         "full"),
+                 lambda: twin.pack_canonical_keys_packed_plain(words, vbits,
+                                                               5, "hash")):
         with pytest.raises(ValueError, match="canon.*pack"):
             call()
