@@ -29,6 +29,8 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from .. import profiling
+
 _NATIVE_DIR = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", "..", "native"))
 _SO_PATH = os.path.join(_NATIVE_DIR, "libfastx.so")
@@ -307,7 +309,13 @@ def prefetch(it: Iterator, depth: int = 512) -> Iterator:
 
     def worker():
         try:
-            for item in it:
+            while True:
+                with profiling.span("kmers.ingest.parse",
+                                    wall_ns="kmers.ingest.parse_ns",
+                                    cpu_ns="kmers.ingest.parse_cpu_ns"):
+                    item = next(it, end)
+                if item is end:
+                    break
                 while not stop.is_set():
                     try:
                         q.put(item, timeout=0.2)
@@ -325,11 +333,15 @@ def prefetch(it: Iterator, depth: int = 512) -> Iterator:
     t.start()
     try:
         while True:
-            item = q.get()
+            ready = not q.empty()
+            with profiling.span("kmers.ingest.wait"):
+                item = q.get()
             if item is end:
                 return
             if isinstance(item, tuple) and len(item) == 2 and item[0] is err:
                 raise item[1]
+            profiling.add("kmers.ingest.batches")
+            profiling.add("kmers.ingest.ready", ready)
             yield item
     finally:
         stop.set()

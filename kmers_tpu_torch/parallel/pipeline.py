@@ -49,6 +49,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from .. import profiling
 from ..core import u64
 from ..core.spec import (MAX_K, MAX_WIDE_K, NARROW_MAX_K, WORD_K, KmerSpec,
                          check_k_range)
@@ -732,28 +733,36 @@ def make_sharded_lookup(mesh, *, query_capacity: int, seed: int = 0,
         raise ValueError(f"merge_lookup takes k <= {NARROW_MAX_K} keys, "
                          f"max_k={max_k}")
 
-    def body(tables, queries, valid, mesh):
-        routed, reply = route_ops.route_queries(queries, valid, mesh,
-                                                query_capacity, seed)
-        answers = []
-        for table, r in zip(tables, routed):
-            if use_merge:
-                got = count_ops.lookup_merge(table, r.words, r.valid)
-            else:
-                got = count_ops.lookup(table, r.words)
-            answers.append(torch.where(r.valid, got, -1))
-        counts = torch.cat([c.to(mesh[0]) for c in reply(answers)])
-        return counts, mesh_ops.psum([r.overflow for r in routed], mesh)
+    def answer(table, r):
+        if use_merge:
+            got = count_ops.lookup_merge(table, r.words, r.valid)
+        else:
+            got = count_ops.lookup(table, r.words)
+        return torch.where(r.valid, got, -1)
 
     mesh = mesh_ops.as_mesh(mesh)
     groups = mesh_ops.axis_groups(mesh, axis)
 
     def fn(tables, queries: torch.Tensor, valid: torch.Tensor):
-        q, v = (mesh_ops.batch_sharding(x, mesh, axis) for x in (queries, valid))
         # every group answers, as every JAX device does; each group's
-        # answers are this process's queries'
-        return [body(*([x[i] for i in g.local] for x in (tables, q, v)),
-                     g.mesh) for g in groups][0]
+        # answers are this process's queries'.  Each phase runs for every
+        # group in the groups' order, so every process meets each group's
+        # collectives in one order
+        with profiling.span("kmers.lookup.route"):
+            q, v = (mesh_ops.batch_sharding(x, mesh, axis)
+                    for x in (queries, valid))
+            routes = [route_ops.route_queries(
+                [q[i] for i in g.local], [v[i] for i in g.local], g.mesh,
+                query_capacity, seed) for g in groups]
+        with profiling.span("kmers.lookup.answer"):
+            answers = [[answer(tables[i], r)
+                        for i, r in zip(g.local, routed)]
+                       for g, (routed, _) in zip(groups, routes)]
+        with profiling.span("kmers.lookup.reply"):
+            return [(torch.cat([c.to(g.mesh[0]) for c in reply(a)]),
+                     mesh_ops.psum([r.overflow for r in routed], g.mesh))
+                    for g, (routed, reply), a in zip(groups, routes,
+                                                     answers)][0]
 
     return fn
 

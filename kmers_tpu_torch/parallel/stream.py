@@ -35,7 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import convert
+from .. import convert, profiling
 from ..core import u64, u128
 from ..core.spec import NARROW_MAX_K, KmerSpec, check_k
 from . import count as count_ops
@@ -76,29 +76,37 @@ def _sort_units_wide(pending) -> tuple:
 def _merge_bounded_streaming(table, pending, capacity: int):
     """Sort the pending keys, merge them into the table, bound it.
     Returns (table, dropped_unique, dropped_kmers)."""
-    s_hi, s_lo = _sort_units(pending)
-    merged = count_ops.merge_table_with_sorted_units(table, s_hi, s_lo)
+    with profiling.span("kmers.consolidate.sort"):
+        s_hi, s_lo = _sort_units(pending)
+    with profiling.span("kmers.consolidate.merge"):
+        merged = count_ops.merge_table_with_sorted_units(table, s_hi, s_lo)
     return _bound_table(merged, capacity)
 
 
 def _merge_bounded_streaming_wide(table, pending, capacity: int):
     """_merge_bounded_streaming for 128-bit keys (K6 and K4)."""
-    merged = count_ops.merge_table_with_sorted_units_wide(
-        table, _sort_units_wide(pending))
+    with profiling.span("kmers.consolidate.sort"):
+        sorted_units = _sort_units_wide(pending)
+    with profiling.span("kmers.consolidate.merge"):
+        merged = count_ops.merge_table_with_sorted_units_wide(table,
+                                                              sorted_units)
     return _bound_table(merged, capacity)
 
 
 def _merge_bounded(table, pending, capacity: int, max_k=None):
     """merge_many of the table and the pending tables of any form, then
     _bound_table (kmers_tpu/parallel/stream.py:60-64)."""
-    return _bound_table(count_ops.merge_many([table] + list(pending),
-                                             max_k=max_k), capacity)
+    with profiling.span("kmers.consolidate.merge"):
+        merged = count_ops.merge_many([table] + list(pending), max_k=max_k)
+    return _bound_table(merged, capacity)
 
 
 def _merge_bounded_wide(table, pending, capacity: int, max_k=None):
     """_merge_bounded for 128-bit tables (stream.py:171-179)."""
-    return _bound_table(count_ops.merge_many_wide([table] + list(pending),
-                                                  max_k=max_k), capacity)
+    with profiling.span("kmers.consolidate.merge"):
+        merged = count_ops.merge_many_wide([table] + list(pending),
+                                           max_k=max_k)
+    return _bound_table(merged, capacity)
 
 
 def _bound_table(merged, capacity: int):
@@ -106,20 +114,21 @@ def _bound_table(merged, capacity: int):
     slots: a slice when it fits, rank eviction (dead last, count
     descending, key ascending) otherwise.  Returns (table, dropped_unique,
     dropped_kmers)."""
-    nu = merged.n_unique
-    if nu <= capacity:
-        return count_ops.make_table(
-            tuple(p[:capacity] for p in merged.keys),
-            merged.counts[:capacity], nu), 0, 0
-    cnt = merged.counts[:nu]
-    # the live prefix is key-ascending, so a stable sort by count
-    # descending ranks (count desc, key asc); the first `capacity` stay
-    rank = torch.sort(cnt, descending=True, stable=True).indices
-    kept = torch.sort(rank[:capacity]).values      # back to key order
-    dropped_kmers = int(cnt[rank[capacity:]].to(torch.int64).sum())
-    out = count_ops.make_table(tuple(p[kept] for p in merged.keys),
-                               cnt[kept], capacity)
-    return out, nu - capacity, dropped_kmers
+    with profiling.span("kmers.consolidate.bound"):
+        nu = merged.n_unique
+        if nu <= capacity:
+            return count_ops.make_table(
+                tuple(p[:capacity] for p in merged.keys),
+                merged.counts[:capacity], nu), 0, 0
+        cnt = merged.counts[:nu]
+        # the live prefix is key-ascending, so a stable sort by count
+        # descending ranks (count desc, key asc); the first `capacity` stay
+        rank = torch.sort(cnt, descending=True, stable=True).indices
+        kept = torch.sort(rank[:capacity]).values      # back to key order
+        dropped_kmers = int(cnt[rank[capacity:]].to(torch.int64).sum())
+        out = count_ops.make_table(tuple(p[kept] for p in merged.keys),
+                                   cnt[kept], capacity)
+        return out, nu - capacity, dropped_kmers
 
 
 def _as_tensor(a, dtype: torch.dtype) -> torch.Tensor:
@@ -169,17 +178,30 @@ class StreamingCounter:
     def update(self, reads) -> None:
         """Count one [B, L] uint8 ASCII batch; consolidation is deferred."""
         count = pipeline.count_reads_wide if self.wide else pipeline.count_reads
-        self._absorb(count(_to_device(reads, torch.uint8, self.device),
-                           self.k, aggregate=self.spec.aggregate))
+        with profiling.span("kmers.emit"):
+            with profiling.span("kmers.emit.upload"):
+                reads = _to_device(reads, torch.uint8, self.device)
+            with profiling.span("kmers.emit.count"):
+                res = count(reads, self.k, aggregate=self.spec.aggregate)
+        # the batch's device copy goes before _absorb may consolidate
+        del reads
+        self._absorb(res)
 
     def update_packed(self, words, validbits) -> None:
         """Count one packed batch ([B, L/16] code words + [B, L/32]
         validity bitmaps, io.fastx.read_packed_batches layout)."""
         count = (pipeline.count_reads_packed_wide if self.wide
                  else pipeline.count_reads_packed)
-        self._absorb(count(_to_device(words, torch.int32, self.device),
-                           _to_device(validbits, torch.int32, self.device),
-                           self.k, aggregate=self.spec.aggregate))
+        with profiling.span("kmers.emit"):
+            with profiling.span("kmers.emit.upload"):
+                words = _to_device(words, torch.int32, self.device)
+                validbits = _to_device(validbits, torch.int32, self.device)
+            with profiling.span("kmers.emit.count"):
+                res = count(words, validbits, self.k,
+                            aggregate=self.spec.aggregate)
+        # the batch's device copies go before _absorb may consolidate
+        del words, validbits
+        self._absorb(res)
 
     def _absorb(self, res) -> None:
         self._pending.append(res.table)
@@ -191,32 +213,34 @@ class StreamingCounter:
     def _consolidate(self) -> None:
         if not self._pending:
             return
-        pending = list(self._pending)
-        # pad to merge_every with all-dead tables, as the JAX package does
-        # (there to keep one compiled executable)
-        if (len({t.capacity for t in pending}) == 1
-                and len(pending) < self.merge_every):
-            empty = count_ops.empty_like_table(pending[0])
-            pending += [empty] * (self.merge_every - len(pending))
-        if all(isinstance(t, (count_ops.UnitTable, count_ops.UnitTableWide))
-               for t in pending):
-            merge = (_merge_bounded_streaming_wide if self.wide
-                     else _merge_bounded_streaming)
-            new_table, du, dk = merge(self.table, pending, self.capacity)
-        else:
-            merge = _merge_bounded_wide if self.wide else _merge_bounded
-            new_table, du, dk = merge(self.table, pending, self.capacity,
-                                      max_k=self.k)
-        # commit only after the merge completed: a fault raises before any
-        # counter moves, so discard_pending rewinds batches and kmer mass
-        # together
-        kmers_add = int(torch.stack(self._pending_kmers).sum())
-        self.table = new_table
-        self.kmers += kmers_add
-        self._pending_kmers = []
-        self._pending = []
-        self.dropped_unique += du
-        self.dropped_kmers += dk
+        with profiling.span("kmers.consolidate"):
+            pending = list(self._pending)
+            # pad to merge_every with all-dead tables, as the JAX package
+            # does (there to keep one compiled executable)
+            if (len({t.capacity for t in pending}) == 1
+                    and len(pending) < self.merge_every):
+                empty = count_ops.empty_like_table(pending[0])
+                pending += [empty] * (self.merge_every - len(pending))
+            if all(isinstance(t, (count_ops.UnitTable,
+                                  count_ops.UnitTableWide))
+                   for t in pending):
+                merge = (_merge_bounded_streaming_wide if self.wide
+                         else _merge_bounded_streaming)
+                new_table, du, dk = merge(self.table, pending, self.capacity)
+            else:
+                merge = _merge_bounded_wide if self.wide else _merge_bounded
+                new_table, du, dk = merge(self.table, pending, self.capacity,
+                                          max_k=self.k)
+            # commit only after the merge completed: a fault raises before
+            # any counter moves, so discard_pending rewinds batches and kmer
+            # mass together
+            kmers_add = int(torch.stack(self._pending_kmers).sum())
+            self.table = new_table
+            self.kmers += kmers_add
+            self._pending_kmers = []
+            self._pending = []
+            self.dropped_unique += du
+            self.dropped_kmers += dk
 
     def discard_pending(self) -> None:
         """Roll back unconsolidated batches after a mid-stream failure: the
@@ -260,17 +284,21 @@ class StreamingCounter:
         # one temp file per process: the processes of a multi-process
         # counter each write the same table
         tmp = f"{final}.{os.getpid()}.tmp.npz"
-        np.savez(
-            tmp,
-            k=np.int64(self.k),
-            capacity=np.int64(self.capacity),
-            batches=np.int64(self.batches),
-            kmers=np.int64(self.kmers),
-            dropped_unique=np.int64(self.dropped_unique),
-            dropped_kmers=np.int64(self.dropped_kmers),
-            **convert.table_to_numpy(self.table),
-        )
-        os.replace(tmp, final)
+        with profiling.span("kmers.save"):
+            with profiling.span("kmers.save.fetch"):
+                arrays = convert.table_to_numpy(self.table)
+            with profiling.span("kmers.save.write"):
+                np.savez(
+                    tmp,
+                    k=np.int64(self.k),
+                    capacity=np.int64(self.capacity),
+                    batches=np.int64(self.batches),
+                    kmers=np.int64(self.kmers),
+                    dropped_unique=np.int64(self.dropped_unique),
+                    dropped_kmers=np.int64(self.dropped_kmers),
+                    **arrays,
+                )
+                os.replace(tmp, final)
 
     @staticmethod
     def load(path: str, *, device) -> "StreamingCounter":

@@ -1,9 +1,13 @@
 """Tracing, timing and roofline accounting (counterpart of
 ``kmers_tpu/profiling.py``).
 
-  * ``trace(logdir)``: a ``torch.profiler`` trace of any block,
-    written to ``logdir/trace.json`` (Chrome trace format: open it in
-    chrome://tracing or Perfetto).
+  * ``span`` / ``add`` / ``counters``: the program's own spans and
+    counters at its layer boundaries (``SPANS``, ``COUNTERS``), on only
+    while a torch profiler records this process.
+  * ``trace(logdir)``: a ``torch.profiler`` trace of any block, every
+    thread, written to ``logdir/trace.json`` (Chrome trace format: open
+    it in chrome://tracing or Perfetto), and the block's counters to
+    ``logdir/counters.json``.
   * ``Timer``: wall-clock rounds.
   * ``device_hbm_gbps`` / ``roofline``: a measured rate against the card's
     peak HBM bandwidth.
@@ -14,11 +18,14 @@
 from __future__ import annotations
 
 import contextlib
+import json
 import os
+import threading
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 #: NVIDIA's published peak HBM bandwidth (GB/s) by a substring of
 #: torch.cuda.get_device_name: the H100 data sheet (SXM5 80 GB HBM3,
@@ -51,17 +58,141 @@ def device_hbm_gbps(device=None) -> float:
                        f"to profiling.HBM_GBPS or set {HBM_ENV}")
 
 
+# -- spans and counters ------------------------------------------------------
+
+#: every span the program records, by name: where it sits
+SPANS = {
+    "kmers.ingest.wait": "io.fastx.prefetch, consumer: the blocking get of "
+                         "the parser thread's next batch",
+    "kmers.ingest.parse": "io.fastx.prefetch, parser thread: one next() of "
+                          "the wrapped reader (read, allocate, native pack); "
+                          "a cpu_op range, seen by an all-threads trace",
+    "kmers.emit": "StreamingCounter.update / update_packed up to _absorb: "
+                  "one batch's upload and count",
+    "kmers.emit.upload": "kmers.emit's host-to-device copies (_to_device)",
+    "kmers.emit.count": "kmers.emit's pipeline.count_reads* (windows, unit "
+                        "or run-length table)",
+    "kmers.consolidate": "StreamingCounter._consolidate: pending tables "
+                         "into the table",
+    "kmers.consolidate.sort": "the pending unit keys' sort (_sort_units, "
+                              "_sort_units_wide)",
+    "kmers.consolidate.merge": "merge_table_with_sorted_units(_wide) (K3 / "
+                               "K6, K4), or merge_many(_wide)",
+    "kmers.consolidate.bound": "_bound_table: the slice, or eviction past "
+                               "capacity",
+    "kmers.save": "StreamingCounter.save after its consolidation",
+    "kmers.save.fetch": "convert.table_to_numpy: the table's copy home",
+    "kmers.save.write": "np.savez of the temp file and os.replace",
+    "kmers.lookup.route": "make_sharded_lookup's step: batch_sharding and "
+                          "route.route_queries",
+    "kmers.lookup.answer": "make_sharded_lookup's step: each shard's "
+                           "count.lookup / lookup_merge and where",
+    "kmers.lookup.reply": "make_sharded_lookup's step: reply, the answers' "
+                          "concatenation on mesh[0], the overflow psum",
+}
+#: every counter the program keeps, by name: what it adds up
+COUNTERS = {
+    "kmers.ingest.batches": "items prefetch's consumer took from the queue",
+    "kmers.ingest.ready": "of those, items already queued when asked",
+    "kmers.ingest.parse_ns": "wall ns inside kmers.ingest.parse "
+                             "(time.perf_counter_ns)",
+    "kmers.ingest.parse_cpu_ns": "the parser thread's CPU ns inside "
+                                 "kmers.ingest.parse (time.thread_time_ns)",
+}
+
+_OFF = contextlib.nullcontext()
+_counts: Dict[str, int] = {}
+_counts_lock = threading.Lock()
+
+
+def _known(name: str, table: dict) -> str:
+    if name not in table:
+        raise KeyError(f"{name!r} is not in profiling's table")
+    return name
+
+
+class _TimedSpan:
+    """A span that also adds its wall and thread-CPU ns to two counters.
+    Its range is a ``_RecordFunctionFast`` (a ``cpu_op`` in the trace),
+    which keeps the interpreter lock: ``record_function``'s op call
+    releases it on entry and exit, and a thread working beside a busy
+    one then waits a switch interval (5 ms) to get it back, each time."""
+
+    __slots__ = ("_span", "_wall_ns", "_cpu_ns", "_t0", "_c0")
+
+    def __init__(self, name: str, wall_ns: str, cpu_ns: str):
+        from torch._C._profiler import _RecordFunctionFast
+
+        self._span = _RecordFunctionFast(name)
+        self._wall_ns = _known(wall_ns, COUNTERS)
+        self._cpu_ns = _known(cpu_ns, COUNTERS)
+
+    def __enter__(self):
+        self._span.__enter__()
+        self._t0, self._c0 = time.perf_counter_ns(), time.thread_time_ns()
+
+    def __exit__(self, *exc):
+        add(self._wall_ns, time.perf_counter_ns() - self._t0)
+        add(self._cpu_ns, time.thread_time_ns() - self._c0)
+        return self._span.__exit__(*exc)
+
+
+def span(name: str, wall_ns: Optional[str] = None,
+         cpu_ns: Optional[str] = None):
+    """A ``record_function`` range named `name` (a key of ``SPANS``)
+    while a torch profiler records (torch's process-wide flag, true on
+    every thread), else a shared no-op context: no ``record_function``,
+    clock read or allocation.  With `wall_ns` and
+    `cpu_ns` (keys of ``COUNTERS``) it also adds its wall time and its
+    thread's CPU time to them."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    _known(name, SPANS)
+    if wall_ns is None:
+        return torch.profiler.record_function(name)
+    return _TimedSpan(name, wall_ns, cpu_ns)
+
+
+def add(name: str, n: int = 1) -> None:
+    """Add `n` to the process-wide counter `name` (a key of
+    ``COUNTERS``) while a profiler records; any thread."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    _known(name, COUNTERS)
+    with _counts_lock:
+        _counts[name] = _counts.get(name, 0) + int(n)
+
+
+def counters() -> Dict[str, int]:
+    """A snapshot of every counter's total since the process started
+    (each grows only while a profiler records)."""
+    with _counts_lock:
+        return dict(_counts)
+
+
 @contextlib.contextmanager
 def trace(logdir: str):
-    """torch.profiler trace of the enclosed block (CPU, and CUDA where a
-    card is present), written to ``logdir/trace.json`` on exit."""
+    """torch.profiler trace of the enclosed block (CPU on every thread,
+    so the parser's ``kmers.ingest.parse`` too, and CUDA where a card is
+    present), written to ``logdir/trace.json`` on exit, and what the
+    block added to each counter to ``logdir/counters.json``."""
+    from torch._C._profiler import _ExperimentalConfig
+
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
+    before = counters()
+    with torch.profiler.profile(
+            activities=activities,
+            experimental_config=_ExperimentalConfig(
+                profile_all_threads=True)) as prof:
         yield
+    after = counters()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    with open(os.path.join(logdir, "counters.json"), "w") as f:
+        json.dump({name: after.get(name, 0) - before.get(name, 0)
+                   for name in COUNTERS}, f, indent=1)
 
 
 class Timer:
