@@ -316,7 +316,9 @@ def route_queries(words: Sequence[torch.Tensor], valid: Sequence[torch.Tensor],
         orig = first[step]
         counts = _owner_counts(s, v.sum(), d)
         buf = _bucket_sends((s, orig), counts, capacity, 1)(0)  # [D, 3, C]
-        sends.append(buf[:, [0, 2]])
+        # words and mask (planes 0 and 2) by a slice: an index list would
+        # be copied up from the host, a sync a call
+        sends.append(buf[:, ::2])
         in_bucket = buf[:, 2] != 0
         homes.append((torch.where(in_bucket, buf[:, 1], n).reshape(-1), n,
                       shape))

@@ -84,11 +84,14 @@ SPANS = {
     "kmers.save.fetch": "convert.table_to_numpy: the table's copy home",
     "kmers.save.write": "np.savez of the temp file and os.replace",
     "kmers.lookup.route": "make_sharded_lookup's step: batch_sharding and "
-                          "route.route_queries",
+                          "route.route_queries (graphed: the batch's copy "
+                          "into the graphs' buffers and their replay)",
     "kmers.lookup.answer": "make_sharded_lookup's step: each shard's "
-                           "count.lookup / lookup_merge and where",
+                           "count.lookup / lookup_merge and where (graphed: "
+                           "their replay)",
     "kmers.lookup.reply": "make_sharded_lookup's step: reply, the answers' "
-                          "concatenation on mesh[0], the overflow psum",
+                          "concatenation on mesh[0], the overflow psum "
+                          "(graphed: their replay and the results' copies)",
 }
 #: every counter the program keeps, by name: what it adds up
 COUNTERS = {
@@ -98,6 +101,9 @@ COUNTERS = {
                              "(time.perf_counter_ns)",
     "kmers.ingest.parse_cpu_ns": "the parser thread's CPU ns inside "
                                  "kmers.ingest.parse (time.thread_time_ns)",
+    "kmers.lookup.calls": "make_sharded_lookup's steps run",
+    "kmers.lookup.replays": "of those, steps answered by replaying their "
+                            "CUDA graphs (one card, binary search)",
 }
 
 _OFF = contextlib.nullcontext()
