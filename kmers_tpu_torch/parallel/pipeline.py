@@ -283,17 +283,22 @@ def _sharded_count_tail(canon, valid, n_reads: int, n_win: int, mesh,
         "route_bytes": mesh.n_shards * routed[0].valid.numel()
         * (17 if wide else 9),
     }
-    return CountResult([_shard_table(r.words, r.valid, k, aggregate)
-                        for r in routed], metrics)
+    with profiling.span("kmers.shard.table"):
+        tables = [_shard_table(r.words, r.valid, k, aggregate)
+                  for r in routed]
+    return CountResult(tables, metrics)
 
 
-def _windows_tail(wins, n_reads: int, **kw) -> CountResult:
-    """Each shard's windows -> their canonical words -> the tail."""
+def _windows_tail(make_windows, n_reads: int, **kw) -> CountResult:
+    """Each shard's windows (make_windows(): one per local shard) -> their
+    canonical words -> the tail."""
     canonical = (kmer.canonical_word_wide if kw["k"] > WORD_K
                  else kmer.canonical_word)
-    return _sharded_count_tail(
-        [canonical(w.fw, w.rc) for w in wins],
-        [w.valid for w in wins], n_reads, wins[0].n_windows, **kw)
+    with profiling.span("kmers.shard.windows"):
+        wins = make_windows()
+        canon = [canonical(w.fw, w.rc) for w in wins]
+    return _sharded_count_tail(canon, [w.valid for w in wins], n_reads,
+                               wins[0].n_windows, **kw)
 
 
 def _sharded_count_body(reads_local, **kw) -> CountResult:
@@ -301,7 +306,7 @@ def _sharded_count_body(reads_local, **kw) -> CountResult:
     owned tables."""
     windows = (kmer.kmer_windows_wide if kw["k"] > WORD_K
                else kmer.kmer_windows)
-    return _windows_tail([windows(r, kw["k"]) for r in reads_local],
+    return _windows_tail(lambda: [windows(r, kw["k"]) for r in reads_local],
                          sum(r.shape[0] for r in reads_local), **kw)
 
 
@@ -311,7 +316,8 @@ def _sharded_count_body_packed(words_local, validbits_local,
     windows = (kmer.kmer_windows_packed_wide if kw["k"] > WORD_K
                else kmer.kmer_windows_packed)
     return _windows_tail(
-        [windows(w, v, kw["k"]) for w, v in zip(words_local, validbits_local)],
+        lambda: [windows(w, v, kw["k"])
+                 for w, v in zip(words_local, validbits_local)],
         sum(w.shape[0] for w in words_local), **kw)
 
 
@@ -327,7 +333,8 @@ def _over_axis(mesh, axis: str, body):
     groups = mesh_ops.axis_groups(mesh, axis)
 
     def fn(*batch) -> CountResult:
-        blocks = [mesh_ops.batch_sharding(x, mesh, axis) for x in batch]
+        with profiling.span("kmers.shard.split"):
+            blocks = [mesh_ops.batch_sharding(x, mesh, axis) for x in batch]
         tables, metrics = [None] * mesh.n_local, None
         for g in groups:
             res = body(*([b[i] for i in g.local] for b in blocks),
@@ -460,7 +467,8 @@ def make_sequence_parallel_counter(mesh, k: int, *, route_capacity: int,
                else halo_ops.sharded_windows)
 
     def body(blocks, mesh) -> CountResult:
-        res = _windows_tail(windows(blocks, k, mesh), 1, mesh=mesh, k=k,
+        res = _windows_tail(lambda: windows(blocks, k, mesh), 1, mesh=mesh,
+                            k=k,
                             capacity=route_capacity, seed=seed,
                             passes=route_passes, aggregate="compact")
         return CountResult(res.table, {

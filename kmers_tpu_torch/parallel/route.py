@@ -35,6 +35,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from .. import profiling
 from ..core import u64, u128
 from . import mesh as mesh_ops
 
@@ -157,6 +158,21 @@ def _bucket_sends(arrs, counts: torch.Tensor, capacity: int, passes: int):
     return send_at
 
 
+def _all_to_all(bufs: Sequence[torch.Tensor], mesh) -> list:
+    """mesh.all_to_all of one pass's send buffers in the span
+    kmers.route.exchange, counted from their shapes (no sync): every
+    local sender's D - 1 rows bound for other shards cross, and each
+    shard takes in D - 1 rows of one shape."""
+    with profiling.span("kmers.route.exchange"):
+        got = mesh_ops.all_to_all(bufs, mesh)
+    off_rows = ((mesh.n_shards - 1) * bufs[0][0].numel()
+                * bufs[0].element_size())
+    profiling.add("kmers.route.exchanges")
+    profiling.add("kmers.route.cross_bytes", len(bufs) * off_rows)
+    profiling.add("kmers.route.recv_bytes_max", off_rows)
+    return got
+
+
 def _exchange(sorted_planes: Sequence[Sequence[torch.Tensor]],
               counts: Sequence[torch.Tensor], mesh, capacity: int,
               passes: int):
@@ -164,11 +180,14 @@ def _exchange(sorted_planes: Sequence[Sequence[torch.Tensor]],
     owner sort: per pass, one all_to_all of every sender's stacked planes
     and mask.  Returns, per local shard, (received planes, received valid,
     overflow, rerouted); received lanes run pass, global sender, lane."""
-    senders = [_bucket_sends(planes, cnt, capacity, passes)
-               for planes, cnt in zip(sorted_planes, counts)]
+    with profiling.span("kmers.route.bucket"):
+        senders = [_bucket_sends(planes, cnt, capacity, passes)
+                   for planes, cnt in zip(sorted_planes, counts)]
     recv = [[] for _ in senders]
     for p in range(passes):
-        got = mesh_ops.all_to_all([send_at(p) for send_at in senders], mesh)
+        with profiling.span("kmers.route.bucket"):
+            bufs = [send_at(p) for send_at in senders]
+        got = _all_to_all(bufs, mesh)
         for r, g in enumerate(got):
             recv[r].append(g)
     n_planes = len(sorted_planes[0])
@@ -193,13 +212,15 @@ def route(words: Sequence[torch.Tensor], valid: Sequence[torch.Tensor], mesh,
     mesh = mesh_ops.as_mesh(mesh)
     d = mesh.n_shards
     sorted_words, counts = [], []
-    for w, v in zip(words, valid):
-        s, _, _, cnt = bucket_sort(w.reshape(-1), v.reshape(-1), d, seed)
-        sorted_words.append((s,))
-        counts.append(cnt)
-    return [Routed(u64.feistel_unmix(planes[0], seed), rv, ov, rr)
-            for planes, rv, ov, rr in _exchange(sorted_words, counts, mesh,
-                                                capacity, passes)]
+    with profiling.span("kmers.route.bucket"):
+        for w, v in zip(words, valid):
+            s, _, _, cnt = bucket_sort(w.reshape(-1), v.reshape(-1), d, seed)
+            sorted_words.append((s,))
+            counts.append(cnt)
+    received = _exchange(sorted_words, counts, mesh, capacity, passes)
+    with profiling.span("kmers.route.unmix"):
+        return [Routed(u64.feistel_unmix(planes[0], seed), rv, ov, rr)
+                for planes, rv, ov, rr in received]
 
 
 def _owner_sort(owner: torch.Tensor, planes, n_shards: int):
@@ -229,23 +250,26 @@ def route_payload(owner_words: Sequence[torch.Tensor],
     mesh = mesh_ops.as_mesh(mesh)
     d = mesh.n_shards
     sorted_planes, counts, weights = [], [], []
-    for ow, v, pl in zip(owner_words, valid, planes):
-        v = v.reshape(-1)
-        o, sp, cnt = _owner_sort(
-            torch.where(v, owner_of(ow.reshape(-1), d, seed), d), pl, d)
-        if weight_plane is None:
-            weights.append(torch.zeros((), dtype=torch.int64, device=o.device))
-        else:
-            starts = torch.cumsum(cnt, 0) - cnt
-            rank = (torch.arange(o.shape[0], device=o.device)
-                    - starts[torch.clamp(o, 0, d - 1)])
-            dropped = (o < d) & (rank >= passes * capacity)
-            wvals = u64.shr(u64.as_uint32(sp[weight_plane]), weight_shift)
-            if weight_mask is not None:
-                wvals = wvals & weight_mask
-            weights.append(torch.where(dropped, wvals, 0).sum())
-        sorted_planes.append(sp)
-        counts.append(cnt)
+    with profiling.span("kmers.route.bucket"):
+        for ow, v, pl in zip(owner_words, valid, planes):
+            v = v.reshape(-1)
+            o, sp, cnt = _owner_sort(
+                torch.where(v, owner_of(ow.reshape(-1), d, seed), d), pl, d)
+            if weight_plane is None:
+                weights.append(torch.zeros((), dtype=torch.int64,
+                                           device=o.device))
+            else:
+                starts = torch.cumsum(cnt, 0) - cnt
+                rank = (torch.arange(o.shape[0], device=o.device)
+                        - starts[torch.clamp(o, 0, d - 1)])
+                dropped = (o < d) & (rank >= passes * capacity)
+                wvals = u64.shr(u64.as_uint32(sp[weight_plane]),
+                                weight_shift)
+                if weight_mask is not None:
+                    wvals = wvals & weight_mask
+                weights.append(torch.where(dropped, wvals, 0).sum())
+            sorted_planes.append(sp)
+            counts.append(cnt)
     return [RoutedPlanes(tuple(planes_r), rv, ov, rr, w)
             for (planes_r, rv, ov, rr), w in zip(
                 _exchange(sorted_planes, counts, mesh, capacity, passes),
@@ -263,12 +287,14 @@ def route_wide(words: Sequence[tuple], valid: Sequence[torch.Tensor], mesh,
     mesh = mesh_ops.as_mesh(mesh)
     d = mesh.n_shards
     sorted_words, counts = [], []
-    for (hi, lo), v in zip(words, valid):
-        hi, lo, v = hi.reshape(-1), lo.reshape(-1), v.reshape(-1)
-        _, sw, cnt = _owner_sort(
-            torch.where(v, owner_of_wide(hi, lo, d, seed), d), (hi, lo), d)
-        sorted_words.append(sw)
-        counts.append(cnt)
+    with profiling.span("kmers.route.bucket"):
+        for (hi, lo), v in zip(words, valid):
+            hi, lo, v = hi.reshape(-1), lo.reshape(-1), v.reshape(-1)
+            _, sw, cnt = _owner_sort(
+                torch.where(v, owner_of_wide(hi, lo, d, seed), d), (hi, lo),
+                d)
+            sorted_words.append(sw)
+            counts.append(cnt)
     return [RoutedWide(tuple(planes), rv, ov, rr)
             for planes, rv, ov, rr in _exchange(sorted_words, counts, mesh,
                                                 capacity, passes)]

@@ -398,17 +398,21 @@ class ShardedStreamingCounter(StreamingCounter):
         return torch.cat([t, filler])
 
     def update(self, reads) -> None:
-        rows = self._pad_rows(_as_tensor(reads, torch.uint8), ord("N"))
-        self._absorb_sharded(self._scount(rows))
+        with profiling.span("kmers.emit"):
+            rows = self._pad_rows(_as_tensor(reads, torch.uint8), ord("N"))
+            res = self._scount(rows)
+        self._absorb_sharded(res)
 
     def update_packed(self, words, validbits) -> None:
         if self._scount_packed is None:
             raise NotImplementedError(
                 "minimizer partitioning counts from ASCII batches "
                 "(use update / --ascii-ingest)")
-        self._absorb_sharded(self._scount_packed(
-            self._pad_rows(_as_tensor(words, torch.int32), 0),
-            self._pad_rows(_as_tensor(validbits, torch.int32), 0)))
+        with profiling.span("kmers.emit"):
+            res = self._scount_packed(
+                self._pad_rows(_as_tensor(words, torch.int32), 0),
+                self._pad_rows(_as_tensor(validbits, torch.int32), 0))
+        self._absorb_sharded(res)
 
     def _absorb_sharded(self, res) -> None:
         # device scalars only: fetching here would sync every batch
@@ -424,8 +428,11 @@ class ShardedStreamingCounter(StreamingCounter):
     def _consolidate(self) -> None:
         # gather each pending batch's shard tables, every process's, to
         # the table's device
-        self._pending = [pipeline.gather_tables(p, self.mesh)
-                         if isinstance(p, list) else p for p in self._pending]
+        if self._pending:
+            with profiling.span("kmers.consolidate.gather"):
+                self._pending = [pipeline.gather_tables(p, self.mesh)
+                                 if isinstance(p, list) else p
+                                 for p in self._pending]
         super()._consolidate()
         # the overflow counters commit only after the merge succeeded (it
         # raised otherwise), as the k-mer mass does: discard_pending's

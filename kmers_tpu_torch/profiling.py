@@ -68,10 +68,29 @@ SPANS = {
                           "the wrapped reader (read, allocate, native pack); "
                           "a cpu_op range, seen by an all-threads trace",
     "kmers.emit": "StreamingCounter.update / update_packed up to _absorb: "
-                  "one batch's upload and count",
+                  "one batch's upload and count (a sharded counter's: "
+                  "its split, windows, routing and shard tables)",
     "kmers.emit.upload": "kmers.emit's host-to-device copies (_to_device)",
     "kmers.emit.count": "kmers.emit's pipeline.count_reads* (windows, unit "
                         "or run-length table)",
+    "kmers.shard.split": "a sharded step's batch_sharding: this process's "
+                         "rows cut into one block a local shard, each "
+                         "copied to its device",
+    "kmers.shard.windows": "a sharded count step's windows and canonical "
+                           "words, every local shard's in turn",
+    "kmers.route.bucket": "route / route_wide / route_payload, senders: the "
+                          "owner mix and sort, and each pass's send buffers",
+    "kmers.route.exchange": "route's exchange: one pass's mesh.all_to_all "
+                            "(copies between the shards' devices, or one "
+                            "all_to_all_single across processes)",
+    "kmers.route.unmix": "route, receivers: feistel_unmix of the words each "
+                         "local shard received",
+    "kmers.shard.table": "a sharded count step's _shard_table: each local "
+                         "shard's table of its received lanes",
+    "kmers.consolidate.gather": "ShardedStreamingCounter._consolidate: "
+                                "pipeline.gather_tables of the pending shard "
+                                "tables onto the table's device, before "
+                                "kmers.consolidate",
     "kmers.consolidate": "StreamingCounter._consolidate: pending tables "
                          "into the table",
     "kmers.consolidate.sort": "the pending unit keys' sort (_sort_units, "
@@ -101,6 +120,16 @@ COUNTERS = {
                              "(time.perf_counter_ns)",
     "kmers.ingest.parse_cpu_ns": "the parser thread's CPU ns inside "
                                  "kmers.ingest.parse (time.thread_time_ns)",
+    "kmers.route.exchanges": "route's exchanges (kmers.route.exchange): "
+                             "mesh.all_to_all calls, one a routing pass",
+    "kmers.route.cross_bytes": "bytes of the exchanges' send-buffer rows "
+                               "bound for another shard than their sender "
+                               "(from the shapes: each local sender's D - 1 "
+                               "rows, every plane and the mask)",
+    "kmers.route.recv_bytes_max": "the most such bytes any one shard "
+                                  "received in an exchange (D - 1 rows; "
+                                  "the buffers have one shape), summed "
+                                  "over the exchanges",
     "kmers.lookup.calls": "make_sharded_lookup's steps run",
     "kmers.lookup.replays": "of those, steps answered by replaying their "
                             "CUDA graphs (one card, binary search)",
