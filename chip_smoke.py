@@ -201,6 +201,8 @@ KERNEL_INFO = {
     "minimizer_kernel[hash]": (
         "kmers_tpu_torch/kernels/csrc/minimizer.cu",
         "kmers_tpu/kernels/minimizer.py:278 (stage=\"hash\")"),
+    "search_counts": ("kmers_tpu_torch/kernels/csrc/lookup.cu",
+                      "none (kmers_tpu/parallel/count.py:574, jnp)"),
 }
 # the sharded runs of phase 7: (partition, shards, route_capacity); the
 # minimizer partition's budget counts super-k-mers, ~12 per 150 bp read
@@ -2150,7 +2152,7 @@ def phase_mesh2d(stats: dict, workdir: str, seed: int) -> None:
 
     from kmers_tpu_torch import kernels
     from kmers_tpu_torch.io import fastx
-    from kmers_tpu_torch.parallel import count as count_ops
+    from kmers_tpu_torch.kernels import lookup as klookup
     from kmers_tpu_torch.parallel import mesh as mesh_ops
     from kmers_tpu_torch.parallel import pipeline
 
@@ -2219,7 +2221,8 @@ def phase_mesh2d(stats: dict, workdir: str, seed: int) -> None:
     valid = torch.ones_like(queries, dtype=torch.bool)
     split = _split_by_owner(table, 2, LOOKUP["bench_capacity"])
     local = [split[p] for p in mesh_ops.axis_positions(m2d, "s")]
-    want = count_ops.lookup(table, queries)
+    want = klookup.search_counts_plain(table.keys_hi, table.keys_lo,
+                                       table.counts, table.n_unique, queries)
     for arm, merge in (("merge", True), ("binsearch", False)):
         look = lambda m, **kw: pipeline.make_sharded_lookup(
             m, query_capacity=MESH2D["query_capacity"], max_k=31,
@@ -2245,7 +2248,7 @@ def phase_mesh2d(stats: dict, workdir: str, seed: int) -> None:
                     f"{r['wall_1d_s']:.3f}s)" for label, r in results.items())
         + "; every local shard's table == the D = 2 run's at its index "
         "along the axis (replicas equal), metrics ==, overflow 0, lookup "
-        f"answers == D = 2 and count.lookup; launches "
+        f"answers == D = 2 and the plain search; launches "
         f"{stats['mesh2d']['launches']}")
 
 
@@ -2387,21 +2390,25 @@ def phase_lookup(stats: dict, seed: int, workdir: str) -> None:
     (make_sharded_lookup, merge_lookup True and False), on (b)
     bench_configs.py --lookup's table and queries on one shard, and on (c)
     phase 3's table split over four shards on the one card with 2^20
-    queries; answers equal count.lookup / StreamingCounter.lookup (-1 on
-    invalid lanes), no overflow, and lookup_sharded agrees on the valid
-    lanes.  The merge arm's main runs must launch K3 with its index plane
-    and K4.  Then (a) K3 with idx bit for bit against its plain version at
+    queries; answers equal the plain search (search_counts_plain, no
+    kernel; -1 on invalid lanes), no overflow, and StreamingCounter.lookup
+    and lookup_sharded agree with it on the valid lanes.  The merge arm's
+    main runs must launch K3 with its index plane and K4.  (d) The search kernel K12 bit for bit against its plain
+    version at the lookup cell's shape (2^20 lanes over phase 3's table),
+    timed.  Then (a) K3 with idx bit for bit against its plain version at
     phase 2's 2^24 + 2^24 lanes and at (c)'s shard shape, timed."""
     import torch
 
     from kmers_tpu_torch import kernels
+    from kmers_tpu_torch.core import u64
+    from kmers_tpu_torch.kernels import lookup as klookup
     from kmers_tpu_torch.kernels import merge as kmerge
-    from kmers_tpu_torch.parallel import count as count_ops
     from kmers_tpu_torch.parallel import pipeline
     from kmers_tpu_torch.parallel.mesh import make_mesh
     from kmers_tpu_torch.parallel.stream import StreamingCounter
 
     launched = dict.fromkeys(("merge_sorted_idx", "compress_flagged"), 0)
+    searched = dict(launches=0)
     results = {}
 
     def drive(label, mesh, tables, queries, valid, want, query_capacity):
@@ -2423,6 +2430,7 @@ def phase_lookup(stats: dict, seed: int, workdir: str) -> None:
                 raise AssertionError(
                     f"lookup {label} {arm}: overflow {int(overflow)}, "
                     f"{int((counts != want).sum())} answers differ")
+            searched["launches"] += launches["search_counts"]
             if merge:
                 for name in launched:
                     if launches[name] == 0:
@@ -2440,7 +2448,10 @@ def phase_lookup(stats: dict, seed: int, workdir: str) -> None:
     table, queries = _bench_lookup_inputs()
     valid = torch.ones_like(queries, dtype=torch.bool)
     drive("bench_d1", make_mesh(devices=[DEVICE]), [table], queries, valid,
-          count_ops.lookup(table, queries), LOOKUP["queries"])
+          klookup.search_counts_plain(table.keys_hi, table.keys_lo,
+                                      table.counts, table.n_unique, queries,
+                                      valid),
+          LOOKUP["queries"])
 
     sc = StreamingCounter.load(os.path.join(workdir, "ecoli_1m_k31.npz"),
                                device=DEVICE)
@@ -2452,7 +2463,11 @@ def phase_lookup(stats: dict, seed: int, workdir: str) -> None:
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     queries, valid = _lookup_queries(table_keys(sc.table), g,
                                      LOOKUP["queries"], 0)
-    want = torch.where(valid, sc.lookup(queries), -1)
+    want = klookup.search_counts_plain(sc.table.keys_hi, sc.table.keys_lo,
+                                       sc.table.counts, nu, queries, valid)
+    if not torch.equal(sc.lookup(queries)[valid], want[valid]):
+        raise AssertionError("StreamingCounter.lookup differs from the plain "
+                             "search on the valid lanes")
     mesh4 = make_mesh(devices=[DEVICE] * shards)
     with caught_args(kmerge, "merge_sorted") as caught:
         pipeline.make_sharded_lookup(
@@ -2465,6 +2480,46 @@ def phase_lookup(stats: dict, seed: int, workdir: str) -> None:
         raise AssertionError("lookup_sharded differs on the valid lanes")
     sync()
     peak = torch.cuda.max_memory_allocated()
+
+    # (d) K12 at the lookup cell's shape: 2^20 lanes over phase 3's table,
+    # 97 % of them its keys (as fresh reads of the genome give), the rest
+    # random canonical words, 0.3 % invalid
+    n = LOOKUP["queries"]
+    keys = table_keys(sc.table)
+    w = torch.randint(0, 1 << 62, (n,), device=DEVICE, generator=g)
+    q12 = torch.where(
+        torch.rand(n, device=DEVICE, generator=g) < 0.97,
+        keys[torch.randint(0, nu, (n,), device=DEVICE, generator=g)],
+        u64.unsigned_min(w, u64.reverse_complement(w, 31)))
+    v12 = torch.rand(n, device=DEVICE, generator=g) >= 0.003
+    args12 = (sc.table.keys_hi, sc.table.keys_lo, sc.table.counts, nu, q12,
+              v12)
+    got12 = klookup.search_counts(*args12)
+    err12 = max_abs_err([got12], [klookup.search_counts_plain(*args12)])
+    if err12:
+        raise AssertionError(f"search_counts differs from its plain version "
+                             f"(max_abs_err {err12})")
+    # the library's search with the same answers, the keys joined beforehand
+    joined, q_joined = (u64.to_unsigned_order(x) for x in (keys, q12))
+
+    def library():
+        at = torch.searchsorted(joined, q_joined)
+        at_c = at.clamp(max=nu - 1)
+        hit = (at < nu) & (joined[at_c] == q_joined)
+        return torch.where(v12, torch.where(hit, sc.table.counts[at_c], 0),
+                           -1)
+
+    if not torch.equal(library(), got12):
+        raise AssertionError("torch.searchsorted's answers differ from "
+                             "search_counts'")
+    stats["kernels"]["search_counts"] = dict(
+        max_abs_err=err12, ms=time_ms(lambda: klookup.search_counts(*args12)),
+        plain_ms=time_ms(lambda: klookup.search_counts_plain(*args12)),
+        bound_ms=bound_ms(nbytes(q12, v12, got12)),
+        library_ms=time_ms(library))
+    stats["launches"]["search_counts"] = searched["launches"]
+    stats["profiled"][f"search_counts [2^20 over {nu}]"] = (
+        lambda: klookup.search_counts(*args12))
 
     # (a) K3 with idx at phase 2's inputs (the same generator stream) and at
     # (c)'s shard shape; K4's phase-2 inputs for phase 12's profiler
@@ -2512,12 +2567,18 @@ def phase_lookup(stats: dict, seed: int, workdir: str) -> None:
             f"{arm} {r['ms']:.4f} ms = {r['queries_per_s']:.4g} queries/s "
             f"(first call {r['wall_s']:.3f}s)" for arm, r in res.items())
         for label, res in results.items())
-        + f"; faster at both shapes: {faster}; answers == "
-        f"count.lookup / StreamingCounter.lookup, overflow 0, lookup_sharded "
+        + f"; faster at both shapes: {faster}; answers == the plain "
+        f"search, overflow 0, StreamingCounter.lookup and lookup_sharded "
         f"== on the valid lanes; peak device memory {peak / 2**20:.1f} MiB; "
         f"merge arm launches {launched}; merge_sorted_idx bit-exact vs plain, "
         + ", ".join(f"[{label}] {t[0]:.4f} ms (plain {t[1]:.3f}, bound "
                     f"{t[2]:.4f})" for label, t in sizes.items())
+        + "; search_counts bit-exact vs plain at 2^20 over "
+        f"{nu} keys, {stats['kernels']['search_counts']['ms']:.4f} ms "
+        f"(plain {stats['kernels']['search_counts']['plain_ms']:.4f}, "
+        f"torch.searchsorted and gathers "
+        f"{stats['kernels']['search_counts']['library_ms']:.4f}, "
+        f"bound {stats['kernels']['search_counts']['bound_ms']:.4f})"
         + f"; run broadcast at {starts.shape[0]} lanes: cumsum "
         f"{broadcast['cumsum']:.4f} ms, torch.cummax {broadcast['cummax']:.4f}")
 

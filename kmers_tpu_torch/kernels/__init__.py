@@ -18,6 +18,7 @@ KERNELS = ("pack_canonical_keys_packed", "pack_canonical_keys",
            "merge_sorted_wide", "pack_canonical_keys_wide",
            "pack_canonical_hash_wide", "minimizer_kernel",
            "segment_count_keys", "segment_count_keys_wide", "radix_sort_u64",
+           "search_counts",
            # the stage variants, each counted under its own name
            "pack_canonical_keys_packed[pack]", "pack_canonical_keys[pack]",
            "minimizer_kernel[hash]")

@@ -61,6 +61,7 @@ _SIGNATURES = {
     "kt_radix_tile": ([], _I),
     "kt_radix_scratch_bytes": ([_LL], _LL),
     "kt_radix_sort": ([_P, _P, _LL] + [_P] * 6, _I),
+    "kt_search_counts": ([_P, _P, _P, _LL, _P, _P, _P, _LL, _P], _I),
     "kt_error_string": ([_I], ctypes.c_char_p),
 }
 

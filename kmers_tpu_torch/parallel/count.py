@@ -40,6 +40,7 @@ import torch
 from ..core import u64, u128
 from ..core.spec import MAX_K, NARROW_MAX_K
 from ..kernels import count_tile as kct
+from ..kernels import lookup as klookup
 from ..kernels import merge as kmerge
 from ..kernels import sort as ksort
 
@@ -245,18 +246,10 @@ def merge_table_with_sorted_units_wide(table: CountTableWide,
 
 def lookup(table: CountTable, queries: torch.Tensor) -> torch.Tensor:
     """Count of each int64 query word (0 if absent), by binary search over
-    the live keys in unsigned order (a k = 32 key may carry bit 63)."""
-    nu = table.n_unique
-    if nu == 0:
-        return torch.zeros(queries.shape, dtype=torch.int32,
-                           device=queries.device)
-    keys = u64.to_unsigned_order(
-        u64.join_planes(table.keys_hi[:nu], table.keys_lo[:nu]))
-    q = u64.to_unsigned_order(queries)
-    at = torch.searchsorted(keys, q)
-    at_c = at.clamp(max=nu - 1)
-    hit = (at < nu) & (keys[at_c] == q)
-    return torch.where(hit, table.counts[at_c], 0)
+    the live keys in unsigned order (a k = 32 key may carry bit 63): the
+    search kernel K12 on the card (kernels/lookup.py)."""
+    return klookup.search_counts(table.keys_hi, table.keys_lo, table.counts,
+                                 table.n_unique, queries.contiguous())
 
 
 _INVALID_QUERY = -2          # (0xFFFFFFFF, 0xFFFFFFFE) as an int64 word

@@ -55,6 +55,7 @@ from .. import profiling
 from ..core import u64
 from ..core.spec import (MAX_K, MAX_WIDE_K, NARROW_MAX_K, WORD_K, KmerSpec,
                          check_k_range)
+from ..kernels import lookup as klookup
 from ..kernels import merge as kmerge
 from ..kernels import minimizer as kmini
 from ..kernels import window as kwin
@@ -729,17 +730,21 @@ def make_sharded_lookup(mesh, *, query_capacity: int, seed: int = 0,
     multi-process mesh each process answers its own queries, on its first
     local device), split over its local shards (mesh.batch_sharding).
     route_queries takes each query to its owner, which answers by
-    count.lookup_merge (merge_lookup=True) or
-    count.lookup's binary search (False, and None: on the CPU as the JAX
-    package off a TPU, and on the card because chip_smoke.py's phase 13
-    measured it faster at both of its shapes; PERF.md section 6),
-    and the answers ride home.  merge_lookup=True with max_k > 31 raises,
+    count.lookup_merge (merge_lookup=True) or the binary search K12
+    (kernels/lookup.py; False, and None: on the CPU as the JAX package off
+    a TPU, and on the card because chip_smoke.py's phase 13 measured it
+    faster at both of its shapes; PERF.md section 6), and the answers
+    ride home.  merge_lookup=True with max_k > 31 raises,
     where the JAX package answers wrongly: the merge keys on bit 63.
     On a two-axis mesh the queries split over `axis`, the tables are those
     of a counter over the same axis, and every group of the axis answers
     (the first group's answers and overflow are returned).
 
-    One process whose shards all sit on one card, answering by the binary
+    On a mesh of one shard in one process, answering by the binary search,
+    a plain-tensor batch of at most query_capacity lanes skips routing,
+    which could drop none of them: the search kernel K12
+    (kernels/lookup.py) answers it on mesh[0], overflow 0.  Else one
+    process whose shards all sit on one card, answering by the binary
     search, runs the step as CUDA graphs (_LookupGraphs): each batch shape
     and set of tables is captured on its first call and replayed after,
     with the same answers as the op-by-op step every other mesh, the
@@ -752,9 +757,11 @@ def make_sharded_lookup(mesh, *, query_capacity: int, seed: int = 0,
     def answer(table, r):
         if use_merge:
             got = count_ops.lookup_merge(table, r.words, r.valid)
-        else:
-            got = count_ops.lookup(table, r.words)
-        return torch.where(r.valid, got, -1)
+            return torch.where(r.valid, got, -1)
+        return klookup.search_counts(table.keys_hi, table.keys_lo,
+                                     table.counts, table.n_unique,
+                                     r.words.contiguous(),
+                                     r.valid.contiguous())
 
     mesh = mesh_ops.as_mesh(mesh)
     groups = mesh_ops.axis_groups(mesh, axis)
@@ -787,10 +794,26 @@ def make_sharded_lookup(mesh, *, query_capacity: int, seed: int = 0,
     graphs = (_LookupGraphs(mesh[0], route, answer_all, reply_all)
               if one_card else None)
 
+    # one shard in one process, answered by the binary search: a batch
+    # that fits query_capacity cannot overflow, so routing would hand every
+    # lane back where it was; the search kernel answers it in place
+    one_shard = mesh.n_shards == 1 and not use_merge
+
     def fn(tables, queries: torch.Tensor, valid: torch.Tensor):
         profiling.add("kmers.lookup.calls")
-        if graphs is not None and isinstance(queries, torch.Tensor) \
-                and isinstance(valid, torch.Tensor):
+        plain = (isinstance(queries, torch.Tensor)
+                 and isinstance(valid, torch.Tensor))
+        if one_shard and plain and queries.numel() <= query_capacity:
+            profiling.add("kmers.lookup.direct")
+            with profiling.span("kmers.lookup.answer"):
+                table = tables[0]
+                counts = klookup.search_counts(
+                    table.keys_hi, table.keys_lo, table.counts,
+                    table.n_unique, queries.to(mesh[0]).contiguous(),
+                    valid.to(mesh[0]).contiguous())
+                return counts, torch.zeros((), dtype=torch.int64,
+                                           device=mesh[0])
+        if graphs is not None and plain:
             profiling.add("kmers.lookup.replays")
             return graphs(tables, queries, valid)
         with profiling.span("kmers.lookup.route"):

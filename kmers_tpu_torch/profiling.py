@@ -107,7 +107,8 @@ SPANS = {
                           "into the graphs' buffers and their replay)",
     "kmers.lookup.answer": "make_sharded_lookup's step: each shard's "
                            "count.lookup / lookup_merge and where (graphed: "
-                           "their replay)",
+                           "their replay; one shard: the search kernel over "
+                           "the whole batch)",
     "kmers.lookup.reply": "make_sharded_lookup's step: reply, the answers' "
                           "concatenation on mesh[0], the overflow psum "
                           "(graphed: their replay and the results' copies)",
@@ -131,6 +132,8 @@ COUNTERS = {
                                   "the buffers have one shape), summed "
                                   "over the exchanges",
     "kmers.lookup.calls": "make_sharded_lookup's steps run",
+    "kmers.lookup.direct": "of those, steps answered by the one-shard "
+                           "search kernel, without routing",
     "kmers.lookup.replays": "of those, steps answered by replaying their "
                             "CUDA graphs (one card, binary search)",
 }

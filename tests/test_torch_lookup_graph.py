@@ -1,7 +1,10 @@
 """make_sharded_lookup's step as CUDA graphs: on one card (one shard, and
 four shards of the card) the replayed step against the CPU step and
 count.lookup, lane for lane; where the graphs engage, by the mesh, the
-devices and the answer arm; and the step counters.
+devices and the answer arm; and the step counters.  One shard's batches
+within query_capacity take the search kernel alone
+(tests/test_torch_lookup_direct.py), with no capture; its wider batches
+are graphed.
 
 Imports no JAX, so the card's tests run on a machine that has only torch:
 
@@ -171,9 +174,10 @@ def test_cpu_step_stays_eager(d, merge):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [1, 4])
 def test_batches_through_one_capture(card, monkeypatch, d):
-    """Several query batches of one shape through one capture: each equal,
-    lane for lane, to the CPU step and to count.lookup in the owners'
-    tables, the word whose mix is MAX answered, invalid lanes -1."""
+    """Several query batches of one shape through one capture (one shard:
+    none, its batches fit query_capacity): each equal, lane for lane, to
+    the CPU step and to count.lookup in the owners' tables, the word whose
+    mix is MAX answered, invalid lanes -1."""
     captures = Captures(monkeypatch)
     tables = cpu_tables(d)
     step, ref = card_step(card, d, LANES), cpu_step(d, LANES)
@@ -187,7 +191,7 @@ def test_batches_through_one_capture(card, monkeypatch, d):
         assert int(overflow) == int(want_ov) == 0
         assert torch.equal(counts.cpu(), direct(tables, words, valid, d))
         assert int(counts[5]) >= 0 and (counts[:5] == -1).all()
-    assert captures.n == 1
+    assert captures.n == (0 if d == 1 else 1)
 
 
 @pytest.mark.cuda
@@ -247,7 +251,8 @@ def test_results_are_not_aliased(card, d):
 @pytest.mark.parametrize("d", [1, 4])
 def test_new_table_or_shape_recaptures(card, monkeypatch, d):
     """A new table, or a batch of a new length, is captured anew and
-    answers as the CPU step; a key seen before replays its capture."""
+    answers as the CPU step; a key seen before replays its capture.  One
+    shard captures nothing: every batch fits query_capacity."""
     captures = Captures(monkeypatch)
     t1, t2 = cpu_tables(d, 3), cpu_tables(d, 4)
     step, ref = card_step(card, d, LANES), cpu_step(d, LANES)
@@ -260,15 +265,15 @@ def test_new_table_or_shape_recaptures(card, monkeypatch, d):
         want, want_ov = ref(tables, words, valid)
         assert torch.equal(counts.cpu(), want)
         assert int(overflow) == int(want_ov)
-    assert captures.n == 3
+    assert captures.n == (0 if d == 1 else 3)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [1, 4])
 def test_replays_counted_under_a_profiler(card, d):
     """Under a profiler every call is a replay of the capture the first
-    call (outside it) made; sharded rows run eagerly and count as calls
-    only."""
+    call (outside it) made (one shard: none is, the search kernel answers
+    each); sharded rows run eagerly and count as calls only."""
     tables = cpu_tables(d)
     step = card_step(card, d, LANES)
     on_card = to_card(tables, card)
@@ -277,7 +282,7 @@ def test_replays_counted_under_a_profiler(card, d):
     want, _ = step(on_card, words, valid)
     got, counted = step_counts(
         lambda: [step(on_card, words, valid) for _ in range(5)])
-    assert counted == (5, 5)
+    assert counted == (5, 0 if d == 1 else 5)
     assert all(torch.equal(c, want) for c, _ in got)
     mesh = tmesh.make_mesh(devices=[card] * d)
     rows = (tmesh.ShardedRows(tmesh.batch_sharding(words, mesh)),
