@@ -112,14 +112,15 @@ the exit code is non-zero):
      would slow it), both answer arms of make_sharded_lookup (merge: K3
      with its source-index plane and K4; binary search): bench_configs.py
      --lookup's table (2^19 keys, capacity 2^20) and 2^20 queries on one
-     shard, and phase 3's table split by owner over four shards of 2^22
-     slots on the one card with 2^20 queries (half present, a quarter
-     random canonical words, a quarter invalid, one whose routing mix is
-     the invalid sentinel); answers equal count.lookup /
-     StreamingCounter.lookup, no overflow, lookup_sharded agrees; walls,
-     median times and queries/s, peak memory.  K3 with idx bit for bit
-     against its plain version at 2^24 + 2^24 and at a shard's lookup
-     shape, timed.
+     shard (the binary search: K12 alone), and phase 3's table split by
+     owner over four shards of 2^22 slots on the one card with 2^20
+     queries (half present, a quarter random canonical words, a quarter
+     invalid, one whose routing mix is the invalid sentinel), the routed
+     step run op by op; answers equal the plain search, no overflow,
+     StreamingCounter.lookup and lookup_sharded agree; walls, median
+     times and queries/s, peak memory.  K12 bit for bit against its
+     plain version at the lookup cell's shape, and K3 with idx at
+     2^24 + 2^24 and at a shard's lookup shape, timed.
  12. one K11 call on phase 8's 2^20 keys: whether the host waits for the
      card in it, the device operations it queues and the key bytes it
      moves; then the device time of each of its kernels at every phase-8
@@ -2390,7 +2391,7 @@ def phase_lookup(stats: dict, seed: int, workdir: str) -> None:
     (make_sharded_lookup, merge_lookup True and False), on (b)
     bench_configs.py --lookup's table and queries on one shard, and on (c)
     phase 3's table split over four shards on the one card with 2^20
-    queries; answers equal the plain search (search_counts_plain, no
+    queries, which the routed step answers op by op; answers equal the plain search (search_counts_plain, no
     kernel; -1 on invalid lanes), no overflow, and StreamingCounter.lookup
     and lookup_sharded agree with it on the valid lanes.  The merge arm's
     main runs must launch K3 with its index plane and K4.  (d) The search kernel K12 bit for bit against its plain

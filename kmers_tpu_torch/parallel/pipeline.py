@@ -30,8 +30,9 @@ A batch becomes one table, in the form `aggregate` names (default from
   lookup service  make_sharded_lookup: queries routed to the shards that
                   own them (route.route_queries), answered there by binary
                   search or by merge (count.lookup_merge: K3 with its
-                  source-index plane, K4), and carried home (on one card,
-                  the binary search's step replayed as CUDA graphs);
+                  source-index plane, K4), and carried home; one shard
+                  in one process answers a batch that fits its capacity
+                  by the search kernel K12 alone, without routing;
                   lookup_sharded looks each query up in its owner's table.
   two-axis mesh   every sharded factory takes `axis` ("d" by default):
                   the step runs its one-axis body over each group of that
@@ -46,7 +47,6 @@ mesh, every process's, on the mesh's first local device
 
 from __future__ import annotations
 
-import collections
 from typing import Dict, NamedTuple, Optional
 
 import torch
@@ -743,12 +743,8 @@ def make_sharded_lookup(mesh, *, query_capacity: int, seed: int = 0,
     On a mesh of one shard in one process, answering by the binary search,
     a plain-tensor batch of at most query_capacity lanes skips routing,
     which could drop none of them: the search kernel K12
-    (kernels/lookup.py) answers it on mesh[0], overflow 0.  Else one
-    process whose shards all sit on one card, answering by the binary
-    search, runs the step as CUDA graphs (_LookupGraphs): each batch shape
-    and set of tables is captured on its first call and replayed after,
-    with the same answers as the op-by-op step every other mesh, the
-    merge arm and ShardedRows batches run."""
+    (kernels/lookup.py) answers it on mesh[0], overflow 0.  Every other
+    call runs the routed step."""
     use_merge = bool(merge_lookup)
     if use_merge and max_k is not None and max_k > NARROW_MAX_K:
         raise ValueError(f"merge_lookup takes k <= {NARROW_MAX_K} keys, "
@@ -765,34 +761,6 @@ def make_sharded_lookup(mesh, *, query_capacity: int, seed: int = 0,
 
     mesh = mesh_ops.as_mesh(mesh)
     groups = mesh_ops.axis_groups(mesh, axis)
-
-    # every group answers, as every JAX device does; each group's answers
-    # are this process's queries'.  Each phase runs for every group in the
-    # groups' order, so every process meets each group's collectives in
-    # one order
-    def route(queries, valid):
-        q, v = (mesh_ops.batch_sharding(x, mesh, axis)
-                for x in (queries, valid))
-        return [route_ops.route_queries(
-            [q[i] for i in g.local], [v[i] for i in g.local], g.mesh,
-            query_capacity, seed) for g in groups]
-
-    def answer_all(tables, routes):
-        return [[answer(tables[i], r) for i, r in zip(g.local, routed)]
-                for g, (routed, _) in zip(groups, routes)]
-
-    def reply_all(routes, answers):
-        return [(torch.cat([c.to(g.mesh[0]) for c in reply(a)]),
-                 mesh_ops.psum([r.overflow for r in routed], g.mesh))
-                for g, (routed, reply), a in zip(groups, routes, answers)][0]
-
-    # one process with every shard on one card, answered by the binary
-    # search: no collective leaves the card and no phase syncs the host,
-    # so the phases are captured as CUDA graphs and replayed
-    one_card = (mesh.process_count == 1 and mesh[0].type == "cuda"
-                and all(d == mesh[0] for d in mesh) and not use_merge)
-    graphs = (_LookupGraphs(mesh[0], route, answer_all, reply_all)
-              if one_card else None)
 
     # one shard in one process, answered by the binary search: a batch
     # that fits query_capacity cannot overflow, so routing would hand every
@@ -813,85 +781,27 @@ def make_sharded_lookup(mesh, *, query_capacity: int, seed: int = 0,
                     valid.to(mesh[0]).contiguous())
                 return counts, torch.zeros((), dtype=torch.int64,
                                            device=mesh[0])
-        if graphs is not None and plain:
-            profiling.add("kmers.lookup.replays")
-            return graphs(tables, queries, valid)
+        # every group answers, as every JAX device does; each group's
+        # answers are this process's queries'.  Each phase runs for every
+        # group in the groups' order, so every process meets each group's
+        # collectives in one order
         with profiling.span("kmers.lookup.route"):
-            routes = route(queries, valid)
+            q, v = (mesh_ops.batch_sharding(x, mesh, axis)
+                    for x in (queries, valid))
+            routes = [route_ops.route_queries(
+                [q[i] for i in g.local], [v[i] for i in g.local], g.mesh,
+                query_capacity, seed) for g in groups]
         with profiling.span("kmers.lookup.answer"):
-            answers = answer_all(tables, routes)
+            answers = [[answer(tables[i], r)
+                        for i, r in zip(g.local, routed)]
+                       for g, (routed, _) in zip(groups, routes)]
         with profiling.span("kmers.lookup.reply"):
-            return reply_all(routes, answers)
+            return [(torch.cat([c.to(g.mesh[0]) for c in reply(a)]),
+                     mesh_ops.psum([r.overflow for r in routed], g.mesh))
+                    for g, (routed, reply), a in zip(groups, routes,
+                                                     answers)][0]
 
     return fn
-
-
-class _LookupGraphs:
-    """make_sharded_lookup's step on one card as three CUDA graphs, route,
-    answer and reply, each replayed inside its span.  A key (the batch's
-    shapes and dtypes, each table's storage, capacity and n_unique: what a
-    capture bakes in besides the step's own device) is captured on its
-    first call into static input buffers, the three graphs sharing one
-    memory pool and replaying in capture order; the KEEP keys used last
-    are kept.  A call copies its batch into the buffers, replays, and
-    returns copies of the answers and the overflow, which the next replay
-    overwrites."""
-
-    KEEP = 4
-
-    def __init__(self, device, route, answer, reply):
-        self.device = device
-        self.route, self.answer, self.reply = route, answer, reply
-        self.captured = collections.OrderedDict()
-
-    def __call__(self, tables, queries: torch.Tensor, valid: torch.Tensor):
-        key = (tuple(queries.shape), queries.dtype, tuple(valid.shape),
-               valid.dtype,
-               tuple((t.keys_hi.data_ptr(), t.keys_lo.data_ptr(),
-                      t.counts.data_ptr(), t.capacity, t.n_unique)
-                     for t in tables))
-        with torch.cuda.device(self.device):
-            entry = self.captured.get(key)
-            if entry is None:
-                if len(self.captured) >= self.KEEP:
-                    self.captured.popitem(last=False)
-                entry = self.captured[key] = self._capture(tables, queries,
-                                                           valid)
-            else:
-                self.captured.move_to_end(key)
-            (q, v), (route, answer, reply), (counts, overflow), _ = entry
-            with profiling.span("kmers.lookup.route"):
-                q.copy_(queries)
-                v.copy_(valid)
-                route.replay()
-            with profiling.span("kmers.lookup.answer"):
-                answer.replay()
-            with profiling.span("kmers.lookup.reply"):
-                reply.replay()
-                return counts.clone(), overflow.clone()
-
-    def _capture(self, tables, queries: torch.Tensor, valid: torch.Tensor):
-        """(static inputs, graphs, static outputs, the static tensors
-        between the phases) of one key, after a warm-up on a side stream."""
-        static = tuple(torch.empty(x.shape, dtype=x.dtype, device=self.device)
-                       for x in (queries, valid))
-        for s, x in zip(static, (queries, valid)):
-            s.copy_(x)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            routes = self.route(*static)
-            self.reply(routes, self.answer(tables, routes))
-        torch.cuda.current_stream().wait_stream(side)
-        pool = torch.cuda.graph_pool_handle()
-        graphs = tuple(torch.cuda.CUDAGraph() for _ in range(3))
-        with torch.cuda.graph(graphs[0], pool=pool):
-            routes = self.route(*static)
-        with torch.cuda.graph(graphs[1], pool=pool):
-            answers = self.answer(tables, routes)
-        with torch.cuda.graph(graphs[2], pool=pool):
-            out = self.reply(routes, answers)
-        return static, graphs, out, (routes, answers)
 
 
 def lookup_sharded(tables, queries: torch.Tensor, n_shards: int,

@@ -103,15 +103,12 @@ SPANS = {
     "kmers.save.fetch": "convert.table_to_numpy: the table's copy home",
     "kmers.save.write": "np.savez of the temp file and os.replace",
     "kmers.lookup.route": "make_sharded_lookup's step: batch_sharding and "
-                          "route.route_queries (graphed: the batch's copy "
-                          "into the graphs' buffers and their replay)",
-    "kmers.lookup.answer": "make_sharded_lookup's step: each shard's "
-                           "count.lookup / lookup_merge and where (graphed: "
-                           "their replay; one shard: the search kernel over "
-                           "the whole batch)",
+                          "route.route_queries",
+    "kmers.lookup.answer": "make_sharded_lookup's step: each owner's search "
+                           "kernel K12, or lookup_merge and where (one "
+                           "shard: the search kernel over the whole batch)",
     "kmers.lookup.reply": "make_sharded_lookup's step: reply, the answers' "
-                          "concatenation on mesh[0], the overflow psum "
-                          "(graphed: their replay and the results' copies)",
+                          "concatenation on mesh[0], the overflow psum",
 }
 #: every counter the program keeps, by name: what it adds up
 COUNTERS = {
@@ -134,8 +131,6 @@ COUNTERS = {
     "kmers.lookup.calls": "make_sharded_lookup's steps run",
     "kmers.lookup.direct": "of those, steps answered by the one-shard "
                            "search kernel, without routing",
-    "kmers.lookup.replays": "of those, steps answered by replaying their "
-                            "CUDA graphs (one card, binary search)",
 }
 
 _OFF = contextlib.nullcontext()

@@ -1,10 +1,12 @@
-"""The one-shard lookup step and the search kernel K12 (kernels/lookup.py):
-which path make_sharded_lookup's step takes, by the mesh, the arm, the
-batch's width and form; the short path's answers against count.lookup and
-against the routed step of a two-shard mesh over the same reads; the step
-counters; search_counts' plain version at the edges of a table; and, on
-the card, the kernel against its plain version lane for lane, in a CUDA
-graph too.
+"""make_sharded_lookup's step and the search kernel K12 (kernels/lookup.py):
+which of its two paths the step takes (K12 alone, or the routed step), by
+the mesh, the arm, the batch's width and form; the short path's answers
+against count.lookup and against the routed step of a two-shard mesh over
+the same reads; the routed step's answers against lookup_sharded at an
+overflowing query_capacity and over empty tables; the step counters;
+search_counts' plain version at the edges of a table; and, on the card,
+the step against the CPU step and the kernel against its plain version
+lane for lane, in a CUDA graph too.
 
 Imports no JAX, so the card's tests run on a machine that has only torch:
 
@@ -24,8 +26,7 @@ from kmers_tpu_torch.parallel import mesh as tmesh
 from kmers_tpu_torch.parallel import pipeline
 
 K, ROWS, LENGTH, LANES = 21, 64, 96, 4096
-COUNTERS = ("kmers.lookup.calls", "kmers.lookup.direct",
-            "kmers.lookup.replays")
+COUNTERS = ("kmers.lookup.calls", "kmers.lookup.direct")
 
 
 @pytest.fixture()
@@ -49,6 +50,17 @@ def cpu_tables(d, seed=3):
         reads(seed))
     assert int(res.metrics["route_overflow"]) == 0
     return res.table
+
+
+def to_card(tables, device):
+    return [tcount.CountTable(t.keys_hi.to(device), t.keys_lo.to(device),
+                              t.counts.to(device), t.n_unique)
+            for t in tables]
+
+
+def empty_tables(d, cap=256):
+    z = torch.zeros(cap, dtype=torch.int32)
+    return [tcount.CountTable(z, z, z, 0) for _ in range(d)]
 
 
 def batch(tables, seed, n=LANES):
@@ -82,6 +94,17 @@ def step_counts(fn):
     return out, tuple(after.get(n, 0) - before.get(n, 0) for n in COUNTERS)
 
 
+def lookup_step(device, d, capacity, **kw):
+    return pipeline.make_sharded_lookup(
+        tmesh.make_mesh(devices=[device] * d), query_capacity=capacity,
+        max_k=K, **kw)
+
+
+def owners(tables, words, valid, d):
+    """count.lookup in each query's owner's table, -1 where invalid."""
+    return torch.where(valid, pipeline.lookup_sharded(tables, words, d), -1)
+
+
 # -- which path a step takes (CPU) ---------------------------------------------
 
 class _Routed(Exception):
@@ -101,26 +124,30 @@ def _fail_route(*args, **kwargs):
     (["cpu"], {"merge_lookup": True}, 64, False, "routed"),
     (["cpu"], {}, 64, True, "routed"),
     (["cpu"] * 2, {}, 64, False, "routed"),
-    (["cuda"], {}, 65, False, "graphed"),
+    (["cpu"], {"merge_lookup": False}, 65, False, "routed"),
+    (["cpu"], {"merge_lookup": True}, 65, False, "routed"),
+    (["cpu"] * 4, {}, 64, False, "routed"),
+    (["cpu"] * 4, {"seq_shards": 2, "axis": "d"}, 64, False, "routed"),
+    (["cpu"] * 4, {"seq_shards": 2, "axis": "s"}, 64, False, "routed"),
+    (["cpu"], {"process_count": 2}, 64, False, "routed"),
 ])
 def test_path_by_mesh_arm_width_and_form(monkeypatch, devices, kw, lanes,
                                          rows, want):
     """One shard in one process, the binary search, a plain batch of at
     most query_capacity (64) lanes: the search kernel alone.  A wider
-    batch, the merge arm, sharded rows or two shards: the routed step (on
-    one card, its graphs)."""
+    batch, the merge arm, sharded rows, several shards of one device, a
+    two-axis mesh over either axis or two processes: the routed step."""
     kw = dict(kw)
     shape = kw.pop("shape", (lanes,))
     merge = kw.pop("merge_lookup", None)
+    axis = kw.pop("axis", "d")
     mesh = tmesh.Mesh(devices, **kw)
     monkeypatch.setattr(pipeline.route_ops, "route_queries", _fail_route)
-    monkeypatch.setattr(pipeline, "_LookupGraphs",
-                        lambda *args: lambda *call: "graphed")
     searched = []
     monkeypatch.setattr(pipeline.klookup, "search_counts",
                         lambda *args: searched.append(args) or "direct")
     step = pipeline.make_sharded_lookup(mesh, query_capacity=64, max_k=K,
-                                        merge_lookup=merge)
+                                        axis=axis, merge_lookup=merge)
     queries = torch.arange(lanes, dtype=torch.int64).reshape(shape)
     valid = torch.ones(shape, dtype=torch.bool)
     if rows:
@@ -175,13 +202,13 @@ def test_short_path_keeps_the_batch_shape():
 
 
 @pytest.mark.parametrize("d, lanes, want", [
-    (1, LANES, (3, 3, 0)),
-    (1, LANES + 1, (3, 0, 0)),
-    (2, LANES, (3, 0, 0)),
+    (1, LANES, (3, 3)),
+    (1, LANES + 1, (3, 0)),
+    (2, LANES, (3, 0)),
 ])
 def test_direct_steps_counted_under_a_profiler(d, lanes, want):
     """kmers.lookup.direct counts the steps the search kernel answered
-    alone, among kmers.lookup.calls; none replay on the CPU."""
+    alone, among kmers.lookup.calls."""
     tables = cpu_tables(d)
     words, valid = batch(tables, 8, lanes)
     step = pipeline.make_sharded_lookup(
@@ -191,6 +218,94 @@ def test_direct_steps_counted_under_a_profiler(d, lanes, want):
         lambda: [step(tables, words, valid) for _ in range(3)])
     assert counted == want
     assert all(torch.equal(c, first) for c, _ in got)
+
+
+@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("merge", [None, True])
+def test_cpu_step_counts_and_answers(d, merge):
+    """On the CPU, at both answer arms, every step counts as a call, the
+    one-shard binary search's as direct too, and answers as it does with
+    no profiler: count.lookup in each query's owner's table."""
+    tables = cpu_tables(d)
+    words, valid = batch(tables, 11, 256)
+    fn = lookup_step("cpu", d, 256, merge_lookup=merge)
+    want, want_ov = fn(tables, words, valid)
+    got, counted = step_counts(
+        lambda: [fn(tables, words, valid) for _ in range(3)])
+    assert counted == (3, 3 if d == 1 and not merge else 0)
+    for counts, overflow in got:
+        assert torch.equal(counts, want) and int(overflow) == int(want_ov)
+    assert torch.equal(want, owners(tables, words, valid, d))
+
+
+# -- the routed step's answers (CPU) --------------------------------------------
+
+@pytest.mark.parametrize("d", [1, 4])
+def test_batches_through_one_step(d):
+    """Several query batches through one step: each equal, lane for lane,
+    to count.lookup in the owners' tables, the word whose mix is MAX
+    answered, invalid lanes -1, overflow 0."""
+    tables = cpu_tables(d)
+    fn = lookup_step("cpu", d, LANES)
+    for seed in range(4):
+        words, valid = batch(tables, seed)
+        counts, overflow = fn(tables, words, valid)
+        assert counts.dtype == torch.int32
+        assert torch.equal(counts, owners(tables, words, valid, d))
+        assert int(overflow) == 0
+        assert int(counts[5]) >= 0 and (counts[:5] == -1).all()
+
+
+@pytest.mark.parametrize("d", [1, 4])
+def test_overflowing_capacity_on_the_cpu(d):
+    """A query_capacity below a sender's load to one owner (one shard: a
+    batch four times its capacity, which the routed step answers): every
+    lane answers its owner's count or -1, invalid lanes -1, and the
+    overflow counts the valid lanes dropped."""
+    cap = LANES // d // d // 4
+    tables = cpu_tables(d)
+    fn = lookup_step("cpu", d, cap)
+    for seed in (7, 8):
+        words, valid = batch(tables, seed)
+        counts, overflow = fn(tables, words, valid)
+        want = owners(tables, words, valid, d)
+        dropped = counts != want
+        assert int(overflow) > 0
+        assert (counts[dropped] == -1).all() and valid[dropped].all()
+        assert int(dropped.sum()) == int(overflow)
+
+
+@pytest.mark.parametrize("d", [1, 4])
+def test_empty_tables_on_the_cpu(d):
+    """Tables with no live key, routed (one shard: a batch wider than
+    query_capacity, whose valid lanes fit it): 0 for every valid query,
+    -1 elsewhere, as lookup_sharded answers."""
+    tables = empty_tables(d)
+    words, valid = batch(tables, 5)
+    cap = int(valid.sum())
+    assert cap < LANES
+    counts, overflow = lookup_step("cpu", d, cap)(tables, words, valid)
+    assert torch.equal(counts, torch.where(valid, 0, -1).to(torch.int32))
+    assert torch.equal(counts, owners(tables, words, valid, d))
+    assert int(overflow) == 0
+
+
+@pytest.mark.parametrize("axis", ["d", "s"])
+def test_two_axis_mesh_equals_two_shards(axis):
+    """A (2, 2) CPU mesh answering over either axis, its tables a
+    counter's over the same axis: equal to the two-shard step."""
+    rows = reads(50)
+    m = tmesh.make_mesh(devices=["cpu"] * 4, seq_shards=2)
+    tables = pipeline.make_sharded_counter(
+        m, K, route_capacity=1 << 13, axis=axis)(rows).table
+    tables2 = pipeline.make_sharded_counter(
+        tmesh.make_mesh(devices=["cpu"] * 2), K,
+        route_capacity=1 << 13)(rows).table
+    words, valid = batch(tables2, 51)
+    counts, overflow = pipeline.make_sharded_lookup(
+        m, query_capacity=LANES, max_k=K, axis=axis)(tables, words, valid)
+    assert torch.equal(counts, owners(tables2, words, valid, 2))
+    assert int(overflow) == 0
 
 
 # -- search_counts at the edges of a table -------------------------------------
@@ -369,8 +484,7 @@ def test_kernel_in_a_cuda_graph(card):
 @pytest.mark.cuda
 def test_one_card_step_is_one_kernel(card):
     """The one-card step of a batch within query_capacity: one launch of
-    K12, no capture, answers equal to the CPU's step, overflow 0 on the
-    card."""
+    K12, answers equal to the CPU's step, overflow 0 on the card."""
     (table,) = cpu_tables(1)
     on_card = [tcount.CountTable(table.keys_hi.to(card),
                                  table.keys_lo.to(card),
@@ -383,7 +497,86 @@ def test_one_card_step_is_one_kernel(card):
     kernels.reset_launch_counts()
     (counts, overflow), counted = step_counts(
         lambda: step(on_card, words.to(card), valid.to(card)))
-    assert counted == (1, 1, 0)
+    assert counted == (1, 1)
     assert kernels.launch_counts()["search_counts"] == 1
     assert torch.equal(counts.cpu(), ref([table], words, valid)[0])
     assert overflow.device == counts.device and int(overflow) == 0
+
+
+# -- the routed step on the card ------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 4])
+def test_batches_through_one_step_on_the_card(card, d):
+    """Several query batches through one step on the card (one shard: the
+    search kernel alone, its batches fit query_capacity; four shards of
+    the card: the routed step): each equal, lane for lane, to the CPU step
+    and to count.lookup in the owners' tables."""
+    tables = cpu_tables(d)
+    fn, ref = lookup_step(card, d, LANES), lookup_step("cpu", d, LANES)
+    on_card = to_card(tables, card)
+    for seed in range(4):
+        words, valid = batch(tables, seed)
+        counts, overflow = fn(on_card, words.to(card), valid.to(card))
+        want, want_ov = ref(tables, words, valid)
+        assert counts.device.type == "cuda" and counts.dtype == torch.int32
+        assert torch.equal(counts.cpu(), want)
+        assert int(overflow) == int(want_ov) == 0
+        assert torch.equal(counts.cpu(), owners(tables, words, valid, d))
+        assert int(counts[5]) >= 0 and (counts[:5] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 4])
+def test_overflowing_capacity(card, d):
+    """A query_capacity below a sender's load to one owner: the dropped
+    lanes answer -1 and the overflow is summed, as the CPU step's, over
+    two batches."""
+    cap = LANES // d // d // 4
+    tables = cpu_tables(d)
+    fn, ref = lookup_step(card, d, cap), lookup_step("cpu", d, cap)
+    on_card = to_card(tables, card)
+    for seed in (7, 8):
+        words, valid = batch(tables, seed)
+        counts, overflow = fn(on_card, words.to(card), valid.to(card))
+        want, want_ov = ref(tables, words, valid)
+        assert int(want_ov) > 0
+        assert torch.equal(counts.cpu(), want)
+        assert int(overflow) == int(want_ov)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 4])
+def test_empty_tables(card, d):
+    """Tables with no live key: 0 for every valid query, -1 elsewhere."""
+    tables = empty_tables(d)
+    words, valid = batch(tables, 5)
+    counts, overflow = lookup_step(card, d, LANES)(
+        to_card(tables, card), words.to(card), valid.to(card))
+    assert torch.equal(counts.cpu(), torch.where(valid, 0, -1).to(
+        torch.int32))
+    assert int(overflow) == 0
+
+
+@pytest.mark.cuda
+def test_two_axis_mesh_on_one_card(card):
+    """A (2, 2) mesh of the card answering over "s": routed, equal to the
+    CPU's two-axis step over tables of a counter over the same axis."""
+    rows = reads(50)
+    steps = []
+    for dev in ("cpu", card):
+        m = tmesh.make_mesh(devices=[dev] * 4, seq_shards=2)
+        tables = pipeline.make_sharded_counter(
+            m, K, route_capacity=1 << 13, axis="s")(rows.to(dev)).table
+        fn = pipeline.make_sharded_lookup(m, query_capacity=LANES,
+                                          max_k=K, axis="s")
+        steps.append((fn, tables))
+    words, valid = batch(steps[0][1], 51)
+    want, want_ov = steps[0][0](steps[0][1], words, valid)
+    fn, tables = steps[1]
+    for _ in range(2):
+        (counts, overflow), counted = step_counts(
+            lambda: fn(tables, words.to(card), valid.to(card)))
+        assert counted == (1, 0)
+        assert torch.equal(counts.cpu(), want)
+        assert int(overflow) == int(want_ov)
