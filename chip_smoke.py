@@ -14,12 +14,13 @@ the exit code is non-zero):
      version on the card at main-path shapes, bit for bit (K1 at both
      stages also at [1001, 288], K2 and K7 at [1001, 150], K5 and K8 at [1001, 150] and
      [7, 257], K4 at 1,000,003 lanes on aligned planes and on views off 16
-     bytes, keep bytes 1-255); median times of both.
+     bytes, keep bytes 1-255, K13 on K3's and K6's output over a 2^24-slot
+     table's live prefix and 2^24 unit keys); median times of both.
   3. end to end, k=31: `count` on a seeded E. coli-scale read set
      (4,641,652 bp genome, 1,000,000 reads of 150 bp), capacity 2^24,
      packed ingest; the table must equal an independent torch.unique
      count of the plain windows, and the run must have launched the
-     window (K1), merge (K3) and compress (K4) kernels.  A shorter
+     window (K1), merge (K3) and run-reduce (K13) kernels.  A shorter
      --ascii-ingest run must launch K2 and give the packed run's table;
      the walls of both 100k-read runs.
  3b. the packed ingest's arm of the roofline ablation: one pass of K1 at
@@ -28,7 +29,7 @@ the exit code is non-zero):
   4. end to end, k=63 (128-bit keys): the same run on the same reads;
      the table must equal an independent torch.unique(dim=0) count of
      the plain wide windows, and the run must have launched the wide
-     merge (K6) and K4.  The shorter --ascii-ingest run must launch K7
+     merge (K6) and K13.  The shorter --ascii-ingest run must launch K7
      and give the packed run's table; both walls.
   5. against the JAX package, at k=31 and k=63: the small fixed input's
      table digest must equal SMOKE_DIGEST / SMOKE_DIGEST_WIDE (pinned by
@@ -44,7 +45,7 @@ the exit code is non-zero):
      by minimizer (super-k-mers, K9) and by hash partition, each with one
      shard and with four shards placed on the one card.  Each run must
      have zero routing overflow, save the table of phase 3's single-device
-     count (npz_digest), and launch K3 and K4 (and K9 under the minimizer
+     count (npz_digest), and launch K3 and K13 (and K9 under the minimizer
      partition).
   8. K10 (narrow and wide, every segment size from 8 to 4096 in one
      thread block, and 8192, 16384 and 65536 through the merge rounds)
@@ -63,7 +64,7 @@ the exit code is non-zero):
      the one card: ShardedStreamingCounter (hash) over the 1M-read set at
      k=32, 63 and 64 must save the single-device table of phase 10 / 4
      with zero overflow and 9 B (k=32) or 17 B a received lane of
-     route_bytes, the k=63 run launching K6 and K4;
+     route_bytes, the k=63 run launching K6 and K13;
      make_sequence_parallel_counter over the 4,641,652 bp genome itself
      (Ns at and beside the cuts) at k=31 and 63 must equal an
      independent torch.unique count of the whole sequence with no key on
@@ -76,7 +77,7 @@ the exit code is non-zero):
      1M reads by hash at k=31 (phase 7's D = 4 route capacity), by
      minimizer (k=31, w=11) and by hash at k=63 (phase 14's) must save
      phase 3's / phase 4's table on both processes with zero overflow and
-     the one-process run's route_bytes, launching K3 and K4 (K9 by
+     the one-process run's route_bytes, launching K3 and K13 (K9 by
      minimizer, K6 at k=63); phase 14's sequence-parallel steps, each
      process half the genome, must give phase 14's shard tables lane for
      lane (K11 at k=31); two ranks of `python -m kmers_tpu_torch.dryrun`
@@ -127,8 +128,9 @@ the exit code is non-zero):
      size, and of one K1 (both stages), K2 (k=31) and K7 (k=63) at
      [4096, 256], K5
      (k=31) and K8 (k=63) at [2048, 1024], the stage variants, K10 (seg
-     64), K4 (2^25: its memset and its one kernel) and K3 with idx
-     (2^24 + 2^24) call at their timed shapes (torch.profiler, last so
+     64), K4 (2^25: its memset and its one kernel), K13 (phase 2's
+     shape: its memset and two kernels) and K3 with idx (2^24 + 2^24)
+     call at their timed shapes (torch.profiler, last so
      that it cannot skew the walls above).
 
 The last three lines: `nvidia-smi` name and power limit, a JSON object
@@ -204,6 +206,8 @@ KERNEL_INFO = {
         "kmers_tpu/kernels/minimizer.py:278 (stage=\"hash\")"),
     "search_counts": ("kmers_tpu_torch/kernels/csrc/lookup.cu",
                       "none (kmers_tpu/parallel/count.py:574, jnp)"),
+    "reduce_runs": ("kmers_tpu_torch/kernels/csrc/merge.cu",
+                    "none (kmers_tpu/parallel/count.py:424, jnp around K4)"),
 }
 # the sharded runs of phase 7: (partition, shards, route_capacity); the
 # minimizer partition's budget counts super-k-mers, ~12 per 150 bp read
@@ -445,6 +449,7 @@ def phase_kernels(stats: dict, seed: int) -> None:
         plain_ms=time_ms(lambda: kmerge.merge_sorted_plain(*args3)),
         bound_ms=bound_ms(nbytes(*args3, *kmerge.merge_sorted(*args3))),
         library_ms=None)
+    kernels_reduce(stats, args3)
 
     planes, keep = compress_inputs(g)
     kept = int(keep.sum())
@@ -506,6 +511,63 @@ def merge_inputs(g) -> tuple:
     b_key = u64.to_unsigned_order(torch.sort(u64.to_unsigned_order(b_key))
                                   .values)
     return (a_hi, a_lo, a_w) + u64.split_word(b_key)
+
+
+def reduce_inputs(args3) -> tuple:
+    """K13's input at the count cells' shape: K3's merge of the live
+    prefix of merge_inputs' table (3/4 of 2^24 slots) with its 2^24 unit
+    keys, as a consolidation runs it."""
+    from kmers_tpu_torch.kernels import merge as kmerge
+
+    a_hi, a_lo, a_w, b_hi, b_lo = args3
+    nl = int((a_w > 0).sum())
+    hi, lo, w = kmerge.merge_sorted(a_hi[:nl], a_lo[:nl], a_w[:nl], b_hi, b_lo)
+    return (hi, lo), w
+
+
+def kernels_reduce(stats: dict, args3) -> None:
+    """K13 against its plain version, timed, at the count cells' shape:
+    on K3's output (reduce_inputs) and, as its "wide" entry, on K6's over
+    the same keys as the low halves of 128-bit ones.  Its bound: each
+    merged lane read once, each output slot written once."""
+    import torch
+
+    from kmers_tpu_torch.kernels import merge as kmerge
+
+    cap = SIZES["merge"]
+
+    def entry(keys, w):
+        got = kmerge.reduce_runs(keys, w, cap)
+        want = kmerge.reduce_runs_plain(keys, w, cap)
+        err = max_abs_err(got[0] + (got[1],), want[0] + (want[1],))
+        if err or got[2] != want[2]:
+            raise AssertionError(f"reduce_runs at {len(keys)} key planes "
+                                 f"differs from its plain version ({err})")
+        return dict(max_abs_err=err,
+                    ms=time_ms(lambda: kmerge.reduce_runs(keys, w, cap)),
+                    plain_ms=time_ms(
+                        lambda: kmerge.reduce_runs_plain(keys, w, cap)),
+                    bound_ms=bound_ms(nbytes(*keys, w, *got[0], got[1])),
+                    library_ms=None, lanes=w.shape[0], n_unique=got[2])
+
+    keys, w = reduce_inputs(args3)
+    a_hi, a_lo, a_w, b_hi, b_lo = args3
+    nl = int((a_w > 0).sum())
+    z = torch.zeros_like
+    # the flag moves to the wide key's top plane, as fold_invalid puts it
+    flag = b_hi < 0
+    wide = kmerge.merge_sorted_wide(
+        (z(a_hi[:nl]), z(a_hi[:nl]), a_hi[:nl], a_lo[:nl]), a_w[:nl],
+        (torch.where(flag, b_hi, 0), z(b_hi), torch.where(flag, 0, b_hi),
+         b_lo))
+    r = stats["kernels"]["reduce_runs"] = entry(keys, w)
+    r["wide"] = entry(*wide)
+    stats["profiled"]["reduce_runs [K3's 2^24 live prefix + 2^24]"] = (
+        lambda: kmerge.reduce_runs(keys, w, cap))
+    say(f"phase 2 K13: {r['lanes']} lanes -> {r['n_unique']} runs "
+        f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+        f"{r['bound_ms']:.4f}); wide {r['wide']['ms']:.4f} ms (plain "
+        f"{r['wide']['plain_ms']:.4f}, bound {r['wide']['bound_ms']:.4f})")
 
 
 def compress_inputs(g, n4: int = 0) -> tuple:
@@ -809,8 +871,8 @@ def table_keys(table):
 # window kernel): unit batches at k <= 31 and 33 <= k <= 63; k = 32 and
 # k = 64 count through the run-length tables, torch sorts only
 E2E_KERNELS = {31: (("pack_canonical_keys_packed", "merge_sorted",
-                     "compress_flagged"), "pack_canonical_keys"),
-               63: (("merge_sorted_wide", "compress_flagged"),
+                     "reduce_runs"), "pack_canonical_keys"),
+               63: (("merge_sorted_wide", "reduce_runs"),
                     "pack_canonical_keys_wide"),
                32: ((), None), 64: ((), None)}
 
@@ -1106,7 +1168,7 @@ def phase_sharded(stats: dict, workdir: str) -> None:
         if npz_digest(out) != want:
             raise AssertionError(f"{name}: table differs from the "
                                  "single-device count")
-        needed = ["merge_sorted", "compress_flagged"] + (
+        needed = ["merge_sorted", "reduce_runs"] + (
             ["minimizer_kernel"] if partition == "minimizer" else [])
         for kernel in needed:
             if launches[kernel] == 0:
@@ -1558,7 +1620,7 @@ def phase_sharded_wide(stats: dict, workdir: str, seed: int) -> None:
     phase 10's / phase 4's single-device table (npz_digest) with no
     routing overflow and route_bytes of 9 B (k = 32) or 17 B (128-bit
     keys) a received lane; the k = 63 run, whose pending shard tables
-    are UnitTableWide, must launch K6 and K4.  Then
+    are UnitTableWide, must launch K6 and K13.  Then
     make_sequence_parallel_counter over the 4,641,652 bp genome the reads
     come from, Ns at and beside the three cuts, at k = 31 and 63: no
     overflow, the union of the shard tables (no key on two shards) equal
@@ -1612,7 +1674,7 @@ def phase_sharded_wide(stats: dict, workdir: str, seed: int) -> None:
         if sc.route_bytes != lanes * lane_bytes:
             raise AssertionError(f"{name}: route_bytes {sc.route_bytes} != "
                                  f"{lane_bytes} B x {lanes} received lanes")
-        needed = ("merge_sorted_wide", "compress_flagged") if k == 63 else ()
+        needed = ("merge_sorted_wide", "reduce_runs") if k == 63 else ()
         for kernel in needed:
             if launches[kernel] == 0:
                 raise AssertionError(f"{name}: {kernel} was not launched")
@@ -1767,7 +1829,7 @@ def phase_multiprocess(stats: dict, workdir: str, seed: int) -> None:
     say, each process feeding its local_read_slice of every batch, and
     must each save phase 3's / phase 4's single-device table (npz_digest)
     with route_overflow 0, the route_bytes of the one-process D = 4 run
-    (phase 7 / 14), and launch K3 and K4 (K9 by minimizer, K6 and K4 at
+    (phase 7 / 14), and launch K3 and K13 (K9 by minimizer, K6 and K13 at
     k = 63); then phase 14's sequence-parallel steps, each process its
     half of the genome, whose shard tables must be phase 14's lane for
     lane (K11 at k = 31).  Then two ranks of kmers_tpu_torch.dryrun must
@@ -1796,7 +1858,7 @@ def phase_multiprocess(stats: dict, workdir: str, seed: int) -> None:
                                                     else f"_k{k}")]
         runs = [rep["runs"][name] for rep in reports]
         needed = (("merge_sorted_wide",) if k > 32 else ("merge_sorted",)) + (
-            "compress_flagged",) + (("minimizer_kernel",)
+            "reduce_runs",) + (("minimizer_kernel",)
                                     if partition == "minimizer" else ())
         for rank, run in enumerate(runs):
             if run["route_overflow"]:
@@ -2554,6 +2616,8 @@ def phase_lookup(stats: dict, seed: int, workdir: str) -> None:
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
         library_ms=None, sizes=sizes)
     stats["launches"]["merge_sorted_idx"] = launched["merge_sorted_idx"]
+    # the count path no longer launches K4: its launches are the lookup's
+    stats["launches"]["compress_flagged"] = launched["compress_flagged"]
     stats["profiled"]["merge_sorted_idx [2^24 + 2^24]"] = (
         lambda: kmerge.merge_sorted(*args3, with_idx=True))
     stats["profiled"]["compress_flagged [2^25]"] = (

@@ -1,5 +1,6 @@
 // Consolidation kernels: the streaming merge of the count table with the
-// sorted pending keys, and the stable compaction of run starts.
+// sorted pending keys, the stable compaction of flagged lanes, and the
+// reduction of the merged lanes' runs to a compact table.
 //
 // Replaces three Pallas functions of kmers_tpu/kernels/merge.py:
 //   K3 merge_sorted       (_merge_sorted_impl at nk=2, _merge_kernel_n,
@@ -50,6 +51,34 @@
 // plane or keep pointer off 16 bytes (a view such as x[1:]), takes scalar
 // loads instead.  At 2^25 lanes, half kept, it reaches about 70 % of the
 // memory rate (PERF.md, section 6); 128-thread tiles beat 64-thread ones.
+//
+// K13 reduce_runs: the merged planes of K3 / K6 (NK key planes and the
+// weight) to a compact table: each run of equal valid keys becomes its
+// key and its weight sum mod 2^32, at its rank.  It replaces no TPU
+// kernel: the JAX package's consolidation (kmers_tpu/parallel/count.py,
+// merge_table_with_sorted_units) finds run starts, takes an exclusive
+// cumsum of the weights and compacts both with K4, in jnp around the
+// kernel, and the port did the same in PyTorch, with int64 temporaries
+// over every merged lane.  Bound by bytes: it reads the 4 (NK + 1) bytes
+// of a merged lane twice (once a pass) and writes 4 (NK + 1) bytes a
+// table slot.  Two passes over the same tiles (2048 lanes at NK = 2, 1024
+// at NK = 4, one tile a block in both):
+//   tiles  counts the tile's run starts and its lead, the weight of its
+//          lanes before its first start (all of them if it has none), and
+//          takes the exclusive sum of the starts by K4's decoupled
+//          look-back; the last tile writes the total, the table's
+//          n_unique, which the host reads to size the outputs;
+//   reduce stages the tile in shared memory, ranks its run starts and
+//          takes the exclusive weight prefix of each lane by block scans,
+//          and writes each run's key and the difference of consecutive
+//          starts' prefixes; the tile's last run adds the leads of the
+//          tiles after it up to the next one with a start (warp 0 reads 32
+//          tiles' words at a time), so a run may cross any number of tiles.
+// No lane-wide temporary but the outputs; the scratch is three 8-byte
+// words a tile.  A lane is valid where bit 31 of plane 0 is clear (the
+// folded flag; flagged lanes come last and weigh nothing); a valid lane
+// starts a run where its key differs from the lane before it (lane 0:
+// always; a tile's first lane reads its halo from global memory).
 
 #include "common.cuh"
 
@@ -377,6 +406,266 @@ kt_compress_kernel(const u32* __restrict__ hi, const u32* __restrict__ lo,
   }
 }
 
+#define RR_THREADS 256
+#define RR_WARPS (RR_THREADS / 32)
+
+// Lanes per thread of K13 over NK key planes; tile = RR_THREADS * ITEMS.
+template <int NK> struct RunItems;
+template <> struct RunItems<2> { static constexpr int value = 8; };
+template <> struct RunItems<4> { static constexpr int value = 4; };
+
+template <int NK>
+__host__ __device__ constexpr int rr_tile() {
+  return RR_THREADS * RunItems<NK>::value;
+}
+
+template <int NK>
+static long long rr_tiles(long long n) {
+  return (n + rr_tile<NK>() - 1) / rr_tile<NK>();
+}
+
+// A staged lane's place in shared memory: one pad word every 32 lanes,
+// so that a thread's run of ITEMS lanes (8 or 4 words apart from the next
+// thread's) meets no bank conflict.
+__device__ __forceinline__ int rr_pad(int i) { return i + (i >> 5); }
+
+// K13's scratch of `tiles` tiles, 3 tiles + 2 words of 8 bytes: the
+// ticket, a look-back status word a tile, a (run starts, lead) pair a
+// tile, then the tiles' exclusive start offsets and, last, their total.
+struct RunScratch {
+  u32* ticket;
+  u64* status;
+  uint2* info;
+  long long* off;
+};
+
+static RunScratch rr_scratch(void* base, long long tiles) {
+  u64* w = (u64*)base;
+  return {(u32*)w, w + 1, (uint2*)(w + 1 + tiles),
+          (long long*)(w + 1 + 2 * tiles)};
+}
+
+// K13, first pass: block = one tile, taken from the ticket.  Thread t
+// reads lanes it * RR_THREADS + t (coalesced; lane i - 1 of the start
+// test comes from the line its neighbour just loaded).
+template <int NK>
+__global__ void __launch_bounds__(RR_THREADS)
+kt_run_tiles_kernel(InPlanes<NK + 1> m, long long n, long long tiles,
+                    RunScratch sc) {
+  constexpr int ITEMS = RunItems<NK>::value;
+  constexpr int TILE = rr_tile<NK>();
+  __shared__ u32 s_cnt[RR_WARPS], s_first[RR_WARPS], s_lead[RR_WARPS];
+  __shared__ long long s_tile;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) s_tile = atomicAdd(sc.ticket, 1u);
+  __syncthreads();
+  const long long tile = s_tile;
+  const long long t0 = tile * TILE;
+  u32 w[ITEMS];
+  u32 cnt = 0, first = TILE;     // starts; the first start's lane
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    const int l = it * RR_THREADS + tid;
+    const long long i = t0 + l;
+    w[it] = 0;
+    if (i < n && !(m.p[0][i] >> 31)) {
+      w[it] = m.p[NK][i];
+      bool differs = i == 0;
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+        differs |= i > 0 && m.p[j][i] != m.p[j][i - 1];
+      if (differs) {
+        ++cnt;
+        first = min(first, (u32)l);
+      }
+    }
+  }
+  cnt = __reduce_add_sync(CF_FULL, cnt);
+  first = __reduce_min_sync(CF_FULL, first);
+  if (lane == 0) {
+    s_cnt[warp] = cnt;
+    s_first[warp] = first;
+  }
+  __syncthreads();
+  u32 total = 0;
+  first = TILE;
+#pragma unroll
+  for (int k = 0; k < RR_WARPS; ++k) {
+    total += s_cnt[k];
+    first = min(first, s_first[k]);
+  }
+  u32 lead = 0;                  // the weight before the first start
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it)
+    if ((u32)(it * RR_THREADS + tid) < first) lead += w[it];
+  lead = __reduce_add_sync(CF_FULL, lead);
+  if (lane == 0) s_lead[warp] = lead;
+  __syncthreads();
+  if (warp == 0) {
+    const long long excl = cf_look_back(sc.status, tile, total);
+    if (lane == 0) {
+      u32 lead_all = 0;
+#pragma unroll
+      for (int k = 0; k < RR_WARPS; ++k) lead_all += s_lead[k];
+      sc.info[tile] = make_uint2(total, lead_all);
+      sc.off[tile] = excl;
+      if (tile == tiles - 1) sc.off[tiles] = excl + total;
+    }
+  }
+}
+
+// K13, second pass: block = tile blockIdx.x.  Thread t owns lanes
+// ITEMS t .. ITEMS t + ITEMS - 1 of the staged tile, so that the block
+// scans run in lane order.
+template <int NK>
+__global__ void __launch_bounds__(RR_THREADS)
+kt_reduce_runs_kernel(InPlanes<NK + 1> m, long long n, long long tiles,
+                      RunScratch sc, OutPlanes<NK + 1> o) {
+  constexpr int ITEMS = RunItems<NK>::value;
+  constexpr int TILE = rr_tile<NK>();
+  __shared__ u32 s[NK + 1][TILE + TILE / 32];
+  __shared__ unsigned short s_lane[TILE];   // the lane of the r-th start
+  __shared__ u32 s_halo[NK];                // the key of lane t0 - 1
+  __shared__ u32 s_cnt[RR_WARPS], s_sum[RR_WARPS];
+  __shared__ u32 s_carry;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long tile = blockIdx.x;
+  const long long t0 = tile * TILE;
+  const int width = (int)(n - t0 < TILE ? n - t0 : TILE);
+  for (int i = tid; i < width; i += RR_THREADS) {
+#pragma unroll
+    for (int j = 0; j <= NK; ++j) s[j][rr_pad(i)] = m.p[j][t0 + i];
+  }
+  if (tid < NK) s_halo[tid] = t0 > 0 ? m.p[tid][t0 - 1] : 0u;
+  if (warp == 0) {
+    // the weight past the tile that belongs to its last run: the leads
+    // of the tiles after it, through the first one with a start
+    u32 carry = 0;
+    for (long long u0 = tile + 1; u0 < tiles; u0 += 32) {
+      const long long u = u0 + lane;
+      const uint2 f = u < tiles ? sc.info[u] : make_uint2(1u, 0u);
+      const u32 stop = __ballot_sync(CF_FULL, f.x != 0);
+      const int last = stop ? __ffs(stop) - 1 : 31;
+      carry += __reduce_add_sync(CF_FULL, lane <= last ? f.y : 0u);
+      if (stop) break;
+    }
+    if (lane == 0) s_carry = carry;
+  }
+  __syncthreads();
+
+  const int b = tid * ITEMS;
+  u32 prev[NK];
+#pragma unroll
+  for (int j = 0; j < NK; ++j)
+    prev[j] = b == 0 ? s_halo[j] : s[j][rr_pad(b - 1)];
+  u32 mask = 0, cnt = 0, sum = 0, pre[ITEMS];
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    const int i = b + it;
+    u32 wt = 0;
+    if (i < width) {
+      bool differs = t0 + i == 0;
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        const u32 key = s[j][rr_pad(i)];
+        differs |= key != prev[j];
+        prev[j] = key;
+      }
+      if (!(prev[0] >> 31)) {
+        wt = s[NK][rr_pad(i)];
+        if (differs) {
+          mask |= 1u << it;
+          ++cnt;
+        }
+      }
+    }
+    pre[it] = sum;
+    sum += wt;
+  }
+  // exclusive scans of the threads' starts and weights, in lane order
+  u32 xc = cnt, xs = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const u32 uc = __shfl_up_sync(CF_FULL, xc, d);
+    const u32 us = __shfl_up_sync(CF_FULL, xs, d);
+    if (lane >= d) {
+      xc += uc;
+      xs += us;
+    }
+  }
+  if (lane == 31) {
+    s_cnt[warp] = xc;
+    s_sum[warp] = xs;
+  }
+  __syncthreads();
+  u32 rank = xc - cnt, base = xs - sum, total = 0, tile_sum = 0;
+#pragma unroll
+  for (int k = 0; k < RR_WARPS; ++k) {
+    if (k < warp) {
+      rank += s_cnt[k];
+      base += s_sum[k];
+    }
+    total += s_cnt[k];
+    tile_sum += s_sum[k];
+  }
+  // the weight plane becomes each lane's exclusive weight prefix in the
+  // tile: no thread reads another thread's weights
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    const int i = b + it;
+    if (i < width) {
+      s[NK][rr_pad(i)] = base + pre[it];
+      if ((mask >> it) & 1u) s_lane[rank++] = (unsigned short)i;
+    }
+  }
+  __syncthreads();
+  const long long off = sc.off[tile];
+  const u32 end_sum = tile_sum + s_carry;
+  for (int r = tid; r < (int)total; r += RR_THREADS) {
+    const int i = rr_pad(s_lane[r]);
+#pragma unroll
+    for (int j = 0; j < NK; ++j) o.p[j][off + r] = s[j][i];
+    const u32 end =
+        r + 1 < (int)total ? s[NK][rr_pad(s_lane[r + 1])] : end_sum;
+    o.p[NK][off + r] = end - s[NK][i];
+  }
+}
+
+template <int NK>
+static int kt_run_tiles_launch(InPlanes<NK + 1> m, long long n,
+                               void* scratch, cudaStream_t st) {
+  const long long tiles = rr_tiles<NK>(n);
+  cudaError_t err = cudaMemsetAsync(scratch, 0,
+                                    (size_t)(3 * tiles + 2) * sizeof(u64), st);
+  if (err != cudaSuccess || n == 0) return (int)err;
+  kt_run_tiles_kernel<NK><<<(unsigned)tiles, RR_THREADS, 0, st>>>(
+      m, n, tiles, rr_scratch(scratch, tiles));
+  return (int)cudaGetLastError();
+}
+
+template <int NK>
+static int kt_reduce_runs_launch(InPlanes<NK + 1> m, long long n,
+                                 void* scratch, long long n_unique,
+                                 long long out_lanes, OutPlanes<NK + 1> o,
+                                 cudaStream_t st) {
+  if (n_unique < 0 || n_unique > n || out_lanes < n_unique)
+    return (int)cudaErrorInvalidValue;
+  const long long tiles = rr_tiles<NK>(n);
+  if (n_unique > 0) {
+    kt_reduce_runs_kernel<NK><<<(unsigned)tiles, RR_THREADS, 0, st>>>(
+        m, n, tiles, rr_scratch(scratch, tiles), o);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  for (int j = 0; j <= NK && out_lanes > n_unique; ++j) {
+    cudaError_t err = cudaMemsetAsync(
+        o.p[j] + n_unique, 0, (size_t)(out_lanes - n_unique) * sizeof(u32),
+        st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
 static long long kt_compress_tiles(long long n) {
   return (n + CF_TILE - 1) / CF_TILE;
 }
@@ -455,4 +744,56 @@ KT_EXPORT int kt_compress_flagged(const void* hi, const void* lo,
       (const u32*)hi, (const u32*)lo, (const u32*)pay, (const uint8_t*)keep,
       n, (u32*)o_hi, (u32*)o_lo, (u32*)o_pay, (u32*)words, words + 1);
   return (int)cudaGetLastError();
+}
+
+// 8-byte words of K13's scratch for n merged lanes over nk = 2 or 4 key
+// planes; the last one receives n_unique.
+KT_EXPORT long long kt_reduce_scratch_lanes(long long n, int nk) {
+  return 3 * (nk == 2 ? rr_tiles<2>(n) : rr_tiles<4>(n)) + 2;
+}
+
+// K13, first pass over n merged lanes: planes p0 .. p(nk-1) the keys,
+// most significant first, p(nk) the weights (the pointers past it are
+// unused); scratch: kt_reduce_scratch_lanes(n, nk) words, zeroed here on
+// the stream (the pass's one memset).  Its last word then holds n_unique.
+KT_EXPORT int kt_reduce_runs_tiles(int nk, const void* p0, const void* p1,
+                                   const void* p2, const void* p3,
+                                   const void* p4, long long n, void* scratch,
+                                   void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (nk == 2) {
+    InPlanes<3> m = {{(const u32*)p0, (const u32*)p1, (const u32*)p2}};
+    return kt_run_tiles_launch<2>(m, n, scratch, st);
+  }
+  if (nk == 4) {
+    InPlanes<5> m = {{(const u32*)p0, (const u32*)p1, (const u32*)p2,
+                      (const u32*)p3, (const u32*)p4}};
+    return kt_run_tiles_launch<4>(m, n, scratch, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// K13, second pass: the same planes and scratch, n_unique read from it;
+// o0 .. o(nk) receive the keys and the counts, out_lanes >= n_unique
+// lanes each, zero past n_unique.
+KT_EXPORT int kt_reduce_runs(int nk, const void* p0, const void* p1,
+                             const void* p2, const void* p3, const void* p4,
+                             long long n, void* scratch, long long n_unique,
+                             long long out_lanes, void* o0, void* o1,
+                             void* o2, void* o3, void* o4, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (nk == 2) {
+    InPlanes<3> m = {{(const u32*)p0, (const u32*)p1, (const u32*)p2}};
+    OutPlanes<3> o = {{(u32*)o0, (u32*)o1, (u32*)o2}};
+    return kt_reduce_runs_launch<2>(m, n, scratch, n_unique, out_lanes, o,
+                                    st);
+  }
+  if (nk == 4) {
+    InPlanes<5> m = {{(const u32*)p0, (const u32*)p1, (const u32*)p2,
+                      (const u32*)p3, (const u32*)p4}};
+    OutPlanes<5> o = {{(u32*)o0, (u32*)o1, (u32*)o2, (u32*)o3, (u32*)o4}};
+    return kt_reduce_runs_launch<4>(m, n, scratch, n_unique, out_lanes, o,
+                                    st);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,14 +1,19 @@
-"""Consolidation kernels K3, K6 and K4.
+"""Consolidation kernels K3, K6, K4 and K13.
 
 Counterparts of ``kmers_tpu/kernels/merge.py``'s ``merge_sorted`` (K3,
 two key planes, and ``with_idx``'s source-index plane),
 ``merge_sorted_wide`` (K6, four key planes: 128-bit keys) and
-``compress_flagged`` (K4).  All planes are 1-D int32 tensors holding
-uint32 bit patterns.  CUDA source: ``csrc/merge.cu`` (K3 and K6 are one
-kernel template, the index plane a compile-time flag of it).
+``compress_flagged`` (K4); ``reduce_runs`` (K13) has no TPU kernel: it
+is the glue around K4 in ``kmers_tpu/parallel/count.py``'s table merge.
+All planes are 1-D int32 tensors holding uint32 bit patterns.  CUDA
+source: ``csrc/merge.cu`` (K3 and K6 are one kernel template, the index
+plane a compile-time flag of it; K13 one template on the key planes).
 """
 
 from __future__ import annotations
+
+import functools
+import operator
 
 import torch
 
@@ -152,3 +157,71 @@ def compress_flagged(hi, lo, pay, keep):
     _build.check(code, "compress_flagged")
     count_launch("compress_flagged")
     return tuple(out)
+
+
+def reduce_runs_plain(keys, w, capacity: int):
+    """Plain version of K13: run starts of the valid lanes, an int64
+    cumsum of their weights as uint32, the starts' keys and exclusive
+    prefix sums compacted, each count the difference of consecutive
+    prefixes (the last closed by the total), mod 2^32."""
+    valid = keys[0] >= 0
+    # lane 0's "previous key" differs from it in plane 0
+    first = [keys[0][:1] ^ 1] + [p[:1] for p in keys[1:]]
+    starts = valid & functools.reduce(operator.or_, (
+        p != torch.cat([f, p[:-1]]) for p, f in zip(keys, first)))
+    mw = torch.where(valid, u64.as_uint32(w), 0)
+    csum = torch.cumsum(mw, 0)
+    at = starts.nonzero().squeeze(1)
+    n_unique = at.shape[0]
+    pos = (csum - mw)[at]
+    nxt = torch.cat([pos[1:], csum[-1:]])
+    out_lanes = max(capacity, n_unique)
+
+    def put(x):
+        out = torch.zeros(out_lanes, dtype=torch.int32, device=w.device)
+        out[:n_unique] = x
+        return out
+
+    counts = u64.low32_as_int32((nxt - pos) & u64.LOW32)
+    return tuple(put(p[at]) for p in keys), put(counts), n_unique
+
+
+def reduce_runs(keys, w, capacity: int):
+    """K13: the compact table of merged lanes (K3's or K6's output: keys
+    ascending as unsigned words over the planes, most significant first,
+    flagged lanes last).  Each run of equal valid keys (bit 31 of plane 0
+    clear) becomes one slot: its key and its weight sum mod 2^32 (exact
+    below 2^31).  Returns (key planes, counts, n_unique): int32 planes of
+    max(capacity, n_unique) lanes, zero past n_unique.
+
+    On the card two kernels over the lanes' tiles and one host read,
+    n_unique, in between (it sizes the outputs); no lane-wide temporary
+    but the outputs."""
+    keys = tuple(keys)
+    nk = len(keys)
+    if nk not in (2, 4):
+        raise ValueError("reduce_runs takes two or four key planes")
+    n = w.shape[0]
+    _check_planes(n, **{f"k{i}": p for i, p in enumerate(keys)}, w=w)
+    if not on_cuda(*keys, w):
+        return reduce_runs_plain(keys, w, capacity)
+    device = w.device
+    planes = [p.data_ptr() for p in keys + (w,)]
+    planes += [None] * (5 - len(planes))
+    with torch.cuda.device(device):
+        lib = _build.lib()
+        stream = torch.cuda.current_stream().cuda_stream
+        scratch = torch.empty(lib.kt_reduce_scratch_lanes(n, nk),
+                              dtype=torch.int64, device=device)
+        code = lib.kt_reduce_runs_tiles(nk, *planes, n, scratch.data_ptr(),
+                                        stream)
+        _build.check(code, "reduce_runs")
+        n_unique = int(scratch[-1])
+        out = [torch.empty(max(capacity, n_unique), dtype=torch.int32,
+                           device=device) for _ in range(nk + 1)]
+        outs = [o.data_ptr() for o in out] + [None] * (4 - nk)
+        code = lib.kt_reduce_runs(nk, *planes, n, scratch.data_ptr(),
+                                  n_unique, out[0].shape[0], *outs, stream)
+    _build.check(code, "reduce_runs")
+    count_launch("reduce_runs")
+    return tuple(out[:nk]), out[nk], n_unique

@@ -13,8 +13,8 @@ Two ways to build a table:
 
   streaming     ``unit_table(_wide)`` per batch (k <= 31, 33 <= k <= 63),
                 and ``merge_table_with_sorted_units(_wide)`` (the merge
-                kernel K3 / K6, run starts, a weight cumsum and the
-                compress kernel K4) per consolidation;
+                kernel K3 / K6 over the table's live prefix, then the
+                run-reduce kernel K13) per consolidation;
   sort-based    ``count_words(_wide)`` (compact, or run-length: sorted
                 with duplicates, counts at run starts), ``count_weighted
                 (_wide)`` and ``merge_many(_wide)``, a re-count by weight
@@ -31,12 +31,11 @@ a k = 32 key may carry bit 63 and a k = 64 key bit 127.
 
 from __future__ import annotations
 
-import functools
-import operator
 from typing import NamedTuple
 
 import torch
 
+from .. import profiling
 from ..core import u64, u128
 from ..core.spec import MAX_K, NARROW_MAX_K
 from ..kernels import count_tile as kct
@@ -181,43 +180,17 @@ def _counts_from_positions(pos: torch.Tensor, idx: torch.Tensor,
 
 
 def _merge_with_sorted_units(table, b_keys: tuple, merge):
-    """The body of both widths: `merge` (K3 or K6) of the table, dead
-    slots as MAX sentinels, with the sorted unit keys; run starts; an
-    int64 weight cumsum; K4 over the key planes and the exclusive cumsum,
-    three planes a pass; run counts as differences of the compacted
-    prefix sums.  Returns the merged table (capacity = table.capacity +
-    number of unit keys)."""
-    cap = table.capacity
-    device = table.counts.device
-    live = torch.arange(cap, device=device) < table.n_unique
-    # dead table slots become MAX sentinels, so A ascends with its dead
-    # tail last
-    a_keys = tuple(torch.where(live, p, -1) for p in table.keys)
-    a_w = torch.where(live, table.counts, 0)
-    m_keys, m_w = merge(a_keys, a_w, b_keys)
-    n = m_w.shape[0]
-    pos = torch.arange(n, device=device)
-    valid = m_keys[0] >= 0                # flag bit clear; valid lanes first
-    # lane 0's "previous key" differs from it in plane 0
-    first = [m_keys[0][:1] ^ 1] + [p[:1] for p in m_keys[1:]]
-    starts = valid & functools.reduce(operator.or_, (
-        p != torch.cat([f, p[:-1]]) for p, f in zip(m_keys, first)))
-    mw = torch.where(valid, u64.as_uint32(m_w), 0)
-    csum = torch.cumsum(mw, 0)
-    planes = list(m_keys) + [u64.low32_as_int32(csum - mw)]
-    keep = starts.to(torch.uint8)
-    compact = []
-    for i in range(0, len(planes), 3):    # K4 carries three planes
-        chunk = planes[i:i + 3]
-        out = kmerge.compress_flagged(*(chunk + [chunk[0]] * (3 - len(chunk))),
-                                      keep)
-        compact += out[:len(chunk)]
-    n_unique = int(starts.sum())
-    live2 = pos < n_unique
-    counts = _counts_from_positions(u64.as_uint32(compact[-1]), pos, n_unique,
-                                    csum[-1] & u64.LOW32)
-    return make_table(tuple(torch.where(live2, c, 0) for c in compact[:-1]),
-                      counts, n_unique)
+    """The body of both widths: `merge` (K3 or K6) of the table's live
+    prefix with the sorted unit keys, then K13's reduction of the merged
+    lanes' runs.  Returns the merged compact table, of capacity
+    max(table.capacity, its n_unique)."""
+    nu = table.n_unique
+    m_keys, m_w = merge(tuple(p[:nu] for p in table.keys),
+                        table.counts[:nu], b_keys)
+    profiling.add("kmers.consolidate.merges")
+    profiling.add("kmers.consolidate.reduced", int(m_w.is_cuda))
+    keys, counts, n_unique = kmerge.reduce_runs(m_keys, m_w, table.capacity)
+    return make_table(keys, counts, n_unique)
 
 
 def _merge_narrow(a_keys, a_w, b_keys):
@@ -229,8 +202,7 @@ def merge_table_with_sorted_units(table: CountTable, s_hi: torch.Tensor,
                                   s_lo: torch.Tensor) -> CountTable:
     """Weighted merge of a compact key-sorted CountTable with PRE-SORTED
     unit keys (folded layout, invalid lanes flagged and sorted last):
-    K3, run starts, a weight cumsum, one K4 pass
-    (kmers_tpu/parallel/count.py:424)."""
+    K3 and K13 (kmers_tpu/parallel/count.py:424)."""
     return _merge_with_sorted_units(table, (s_hi, s_lo), _merge_narrow)
 
 
@@ -238,8 +210,7 @@ def merge_table_with_sorted_units_wide(table: CountTableWide,
                                        s_keys: tuple) -> CountTableWide:
     """merge_table_with_sorted_units for 128-bit keys: s_keys = four
     planes ascending as unsigned words with the folded dead flag sorted
-    last.  K6, run starts, a weight cumsum, two K4 passes
-    (kmers_tpu/parallel/count.py:840-888)."""
+    last.  K6 and K13 (kmers_tpu/parallel/count.py:840-888)."""
     return _merge_with_sorted_units(table, tuple(s_keys),
                                     kmerge.merge_sorted_wide)
 

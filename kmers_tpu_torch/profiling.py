@@ -96,7 +96,7 @@ SPANS = {
     "kmers.consolidate.sort": "the pending unit keys' sort (_sort_units, "
                               "_sort_units_wide)",
     "kmers.consolidate.merge": "merge_table_with_sorted_units(_wide) (K3 / "
-                               "K6, K4), or merge_many(_wide)",
+                               "K6, K13), or merge_many(_wide)",
     "kmers.consolidate.bound": "_bound_table: the slice, or eviction past "
                                "capacity",
     "kmers.save": "StreamingCounter.save after its consolidation",
@@ -131,6 +131,10 @@ COUNTERS = {
     "kmers.lookup.calls": "make_sharded_lookup's steps run",
     "kmers.lookup.direct": "of those, steps answered by the one-shard "
                            "search kernel, without routing",
+    "kmers.consolidate.merges": "merge_table_with_sorted_units(_wide) "
+                                "calls: table merges of sorted unit keys",
+    "kmers.consolidate.reduced": "of those, merges whose runs the "
+                                 "run-reduce kernel K13 reduced on the card",
 }
 
 _OFF = contextlib.nullcontext()

@@ -174,7 +174,7 @@ def test_count_on_card_gives_the_reference_table(card, tmp_path):
                     + ["--device", "cuda"]) == 0
     counts = kernels.launch_counts()
     assert counts["pack_canonical_keys_packed"] > 0
-    assert counts["merge_sorted"] > 0 and counts["compress_flagged"] > 0
+    assert counts["merge_sorted"] > 0 and counts["reduce_runs"] > 0
     assert npz_digest(out) == smoke.SMOKE_DIGEST
 
 
@@ -350,7 +350,7 @@ def test_wide_count_on_card_gives_the_reference_table(card, tmp_path):
         assert main(smoke.smoke_count_args(fq, a_out, 63)
                     + ["--ascii-ingest", "--device", "cuda"]) == 0
     counts = kernels.launch_counts()
-    assert counts["merge_sorted_wide"] > 0 and counts["compress_flagged"] > 0
+    assert counts["merge_sorted_wide"] > 0 and counts["reduce_runs"] > 0
     assert counts["pack_canonical_keys_wide"] > 0
     assert npz_digest(out) == npz_digest(a_out) == smoke.SMOKE_DIGEST_WIDE
 
@@ -401,7 +401,7 @@ def test_minimizer_kernel_at_the_sharded_batch_shapes(card, B):
 def test_sharded_count_on_card_gives_the_reference_table(card, tmp_path,
                                                          partition):
     """Two shards on the one card: the smoke input's table, through K9
-    (minimizer partition), K3 and K4."""
+    (minimizer partition), K3 and K13."""
     from kmers_tpu_torch.parallel.mesh import make_mesh
     from kmers_tpu_torch.parallel.stream import (ShardedStreamingCounter,
                                                  count_fastx)
@@ -418,7 +418,7 @@ def test_sharded_count_on_card_gives_the_reference_table(card, tmp_path,
     sc.save(str(tmp_path / "t"))
     counts = kernels.launch_counts()
     assert sc.route_overflow == 0
-    assert counts["merge_sorted"] > 0 and counts["compress_flagged"] > 0
+    assert counts["merge_sorted"] > 0 and counts["reduce_runs"] > 0
     assert (counts["minimizer_kernel"] > 0) == (partition == "minimizer")
     assert npz_digest(str(tmp_path / "t.npz")) == smoke.SMOKE_DIGEST
 
