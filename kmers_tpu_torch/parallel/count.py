@@ -461,13 +461,16 @@ def _count_words(words: tuple, valid: torch.Tensor, max_k, compact: bool):
     JAX package's TPU dispatch, count.py:279-280, :769-770); else a global
     sort, compacted or run-length."""
     spare = _spare(words, max_k)
-    if not compact and spare:
+    if compact:
+        s, sv, _ = _sort_by_key(words, valid, (), spare)
+        return _count_sorted(s, sv, spare)
+    if spare:
         seg = count_words_segmented if len(words) == 1 else (
             count_words_segmented_wide)
         return seg(words[0] if len(words) == 1 else words, valid)
-    s, sv, _ = _sort_by_key(words, valid, (), spare)
-    return _count_sorted(s, sv, spare) if compact else _count_sorted_runs(s,
-                                                                          sv)
+    with profiling.span("kmers.emit.runs"):
+        s, sv, _ = _sort_by_key(words, valid, (), False)
+        return _count_sorted_runs(s, sv)
 
 
 def count_words(words: torch.Tensor, valid: torch.Tensor, max_k=None,
@@ -519,7 +522,8 @@ def _count_weighted(words: tuple, valid: torch.Tensor, weights: torch.Tensor,
     taken mod 2^32 as the JAX package's uint32 sums wrap: exact while
     every key's count stays below 2^31 (count.py:347-373)."""
     spare = _spare(words, max_k)
-    s, sv, (w,) = _sort_by_key(words, valid, (weights,), spare)
+    with profiling.span("kmers.consolidate.recount.sort"):
+        s, sv, (w,) = _sort_by_key(words, valid, (weights,), spare)
     starts, idx = _run_starts(s, sv)
     mw = torch.where(sv, u64.as_uint32(w), 0)
     csum = torch.cumsum(mw, 0)
@@ -573,11 +577,15 @@ def _merge_many(tables, max_k):
     flat = [t for x in tables for t in (x if isinstance(x, list) else [x])]
     device = flat[0].counts.device if hasattr(flat[0], "counts") else (
         flat[0].keys[0].device)
-    parts = [_table_parts(t, device) for t in flat]
-    n_words = len(parts[0][0])
-    words = tuple(torch.cat([p[0][i] for p in parts]) for i in range(n_words))
-    return _count_weighted(words, torch.cat([p[2] for p in parts]),
-                           torch.cat([p[1] for p in parts]), max_k)
+    with profiling.span("kmers.consolidate.recount"):
+        parts = [_table_parts(t, device) for t in flat]
+        n_words = len(parts[0][0])
+        words = tuple(torch.cat([p[0][i] for p in parts])
+                      for i in range(n_words))
+        profiling.add("kmers.consolidate.recounts")
+        profiling.add("kmers.consolidate.recount_lanes", words[0].numel())
+        return _count_weighted(words, torch.cat([p[2] for p in parts]),
+                               torch.cat([p[1] for p in parts]), max_k)
 
 
 def merge_many(tables, max_k=None) -> CountTable:

@@ -73,6 +73,9 @@ SPANS = {
     "kmers.emit.upload": "kmers.emit's host-to-device copies (_to_device)",
     "kmers.emit.count": "kmers.emit's pipeline.count_reads* (windows, unit "
                         "or run-length table)",
+    "kmers.emit.runs": "count._count_words' run-length table with no spare "
+                       "key bit (k = 32, 64): the stable sort and "
+                       "_count_sorted_runs, inside kmers.emit.count",
     "kmers.shard.split": "a sharded step's batch_sharding: this process's "
                          "rows cut into one block a local shard, each "
                          "copied to its device",
@@ -97,6 +100,12 @@ SPANS = {
                               "_sort_units_wide)",
     "kmers.consolidate.merge": "merge_table_with_sorted_units(_wide) (K3 / "
                                "K6, K13), or merge_many(_wide)",
+    "kmers.consolidate.recount": "count._merge_many, from any caller "
+                                 "(merge_many(_wide), _merge_bounded): the "
+                                 "tables' int64 join, their concatenation "
+                                 "and the weighted re-count",
+    "kmers.consolidate.recount.sort": "the stable sort by (invalid, key) "
+                                      "inside count._count_weighted",
     "kmers.consolidate.bound": "_bound_table: the slice, or eviction past "
                                "capacity",
     "kmers.save": "StreamingCounter.save after its consolidation",
@@ -135,6 +144,10 @@ COUNTERS = {
                                 "calls: table merges of sorted unit keys",
     "kmers.consolidate.reduced": "of those, merges whose runs the "
                                  "run-reduce kernel K13 reduced on the card",
+    "kmers.consolidate.recounts": "count._merge_many's weighted re-counts "
+                                  "(kmers.consolidate.recount)",
+    "kmers.consolidate.recount_lanes": "lanes those re-counts took in: the "
+                                       "summed lanes of every table merged",
 }
 
 _OFF = contextlib.nullcontext()

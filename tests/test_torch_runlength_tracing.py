@@ -1,0 +1,215 @@
+"""The run-length path at k = 32 and k = 64 (full-word keys, no spare
+flag bit): its spans and counters (``kmers.emit.runs``,
+``kmers.consolidate.recount`` / ``.recount.sort``,
+``kmers.consolidate.recounts`` / ``.recount_lanes``), off with no
+profiler, and the CLI's k = 32 table against the benchmark's plain
+reference on reads that hold the word (0x80000000, 0), keys with bit 63
+set and Ns."""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from benchmark.reference import kmer_count as ref
+from kmers_tpu_torch import __main__ as cli
+from kmers_tpu_torch import profiling
+from kmers_tpu_torch.io import fastx, simulate
+from kmers_tpu_torch.parallel import stream
+
+BATCH, LENGTH = 64, 128
+FULL_WORD_KS = [32, 64]
+
+
+def user_spans(prof, path):
+    """[(name, start, end, tid)] of the trace's record_function ranges."""
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+             e.get("tid")) for e in events
+            if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+
+
+def named(spans, name):
+    return [s for s in spans if s[0] == name]
+
+
+def within(spans, name, parent, eps=1e-3):
+    return [s for s in named(spans, name)
+            if s[3] == parent[3] and s[1] >= parent[1] - eps
+            and s[2] <= parent[2] + eps]
+
+
+def no_record_function(*_args, **_kwargs):
+    raise AssertionError("record_function entered with no profiler")
+
+
+@pytest.fixture
+def fastq(tmp_path):
+    path = str(tmp_path / "reads.fq")
+    simulate.write_fastq(path, 6000, 300, 100, 0.001, 0.01, seed=32)
+    return path
+
+
+def count_argv(path, out, k):
+    return ["count", path, "-k", str(k), "-o", str(out), "--capacity",
+            str(1 << 15), "--batch", str(BATCH), "--length", str(LENGTH),
+            "--merge-every", "2", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("k", FULL_WORD_KS)
+def test_cli_count_spans(tmp_path, fastq, k):
+    """Under a CPU profiler: one kmers.emit.runs inside each
+    kmers.emit.count, and one kmers.consolidate.recount holding one
+    .recount.sort inside each kmers.consolidate; one re-count a
+    consolidation on the counters."""
+    n_batches = sum(1 for _ in fastx.read_packed_batches(
+        fastq, k=k, batch=BATCH, length=LENGTH))
+    assert n_batches >= 4
+    before = profiling.counters()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        assert cli.main(count_argv(fastq, tmp_path / "t.npz", k)) == 0
+    after = profiling.counters()
+    spans = user_spans(prof, tmp_path / "trace.json")
+
+    counts = named(spans, "kmers.emit.count")
+    assert len(counts) == n_batches
+    for c in counts:
+        assert len(within(spans, "kmers.emit.runs", c)) == 1
+    assert len(named(spans, "kmers.emit.runs")) == n_batches
+    consolidations = named(spans, "kmers.consolidate")
+    assert len(consolidations) == (n_batches + 1) // 2
+    for c in consolidations:
+        (recount,) = within(spans, "kmers.consolidate.recount", c)
+        assert len(within(spans, "kmers.consolidate.recount.sort",
+                          recount)) == 1
+        assert len(within(spans, "kmers.consolidate.recount.sort", c)) == 1
+    assert len(named(spans, "kmers.consolidate.recount")) == \
+        len(consolidations)
+    assert after.get("kmers.consolidate.recounts", 0) - before.get(
+        "kmers.consolidate.recounts", 0) == len(consolidations)
+
+
+def packed_batches(k, rows_per_batch, seed=3):
+    """Packed batches of random reads with a few Ns, one per row count."""
+    rng = np.random.default_rng(seed + k)
+    out = []
+    for rows in rows_per_batch:
+        reads = np.frombuffer(b"ACGT", np.uint8)[
+            rng.integers(0, 4, (rows, LENGTH))]
+        reads[rng.random(reads.shape) < 0.01] = ord("N")
+        out.append(fastx.pack_batch_np(reads))
+    return out
+
+
+@pytest.mark.parametrize("k", FULL_WORD_KS)
+@pytest.mark.parametrize("rows_per_batch", [
+    [16] * 7,                 # two full consolidations, then 1 padded to 3
+    [16, 8, 16, 16, 4],       # one of mixed shapes, then 2 of unequal ones
+])
+def test_recount_lanes_are_the_merged_capacities(monkeypatch, k,
+                                                 rows_per_batch):
+    """At every consolidation the counters move by one re-count and by the
+    summed capacities of the table and the pending tables it merged (the
+    padding to merge_every included)."""
+    seen = []
+    consolidate = stream.StreamingCounter._consolidate
+
+    def recorded(self):
+        if not self._pending:
+            return consolidate(self)
+        caps = [t.capacity for t in self._pending]
+        if len(set(caps)) == 1:
+            caps += [caps[0]] * (self.merge_every - len(caps))
+        want = self.table.capacity + sum(caps)
+        before = profiling.counters()
+        consolidate(self)
+        after = profiling.counters()
+        seen.append(tuple(
+            after.get(n, 0) - before.get(n, 0)
+            for n in ("kmers.consolidate.recounts",
+                      "kmers.consolidate.recount_lanes")) + (want,))
+
+    monkeypatch.setattr(stream.StreamingCounter, "_consolidate", recorded)
+    sc = stream.StreamingCounter(k, 1 << 13, merge_every=3, device="cpu")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        for words, validbits in packed_batches(k, rows_per_batch):
+            sc.update_packed(words, validbits)
+        sc.to_pairs()
+    assert len(seen) == -(-len(rows_per_batch) // 3)
+    for recounts, lanes, want in seen:
+        assert recounts == 1
+        assert lanes == want
+
+
+@pytest.mark.parametrize("k", FULL_WORD_KS)
+def test_off_records_nothing(monkeypatch, tmp_path, fastq, k):
+    """A whole CLI count at k = 32 / 64 with no profiler: no
+    record_function, and no counter moves."""
+    before = profiling.counters()
+    monkeypatch.setattr(torch.profiler, "record_function", no_record_function)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function",
+                        no_record_function)
+    assert cli.main(count_argv(fastq, tmp_path / "t.npz", k)) == 0
+    assert profiling.counters() == before
+
+
+# -- the k = 32 table against the plain reference ------------------------------
+
+#: (0x80000000, 0) as a key: A^31 G's forward word, smaller than its
+#: reverse complement C T^31's, so canonical; the JAX package's folded
+#: invalid pattern at k <= 31
+FLAG_WORD = 1 << 63
+
+
+def seeded_reads(seed=32, n=400, read_len=100):
+    """Random reads with 1 % N, and rows that hold A^31 G, its reverse
+    complement C T^31, A^31 G before an N, and C^31 T (canonical as its
+    reverse complement A G^31, bit 63 set too)."""
+    rng = np.random.default_rng(seed)
+    reads = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4,
+                                                          (n, read_len))]
+    reads[rng.random(reads.shape) < 0.01] = ord("N")
+    for i, motif in enumerate([b"A" * 31 + b"G", b"C" + b"T" * 31,
+                               b"C" * 31 + b"T", b"A" * 31 + b"GN"]):
+        at = 7 * i
+        reads[i, at:at + len(motif)] = np.frombuffer(motif, np.uint8)
+    return reads
+
+
+def write_fastq(path, reads):
+    with open(path, "wb") as f:
+        for i, row in enumerate(reads):
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, row.tobytes(),
+                                            b"I" * len(row)))
+
+
+def test_cli_k32_table_is_the_references(tmp_path):
+    """The CLI's k = 32 count (packed ingest, run-length batch tables,
+    weighted re-counts mid-stream and at save) equals the benchmark's
+    reference key for key and count for count."""
+    reads = seeded_reads()
+    path = tmp_path / "reads.fq"
+    write_fastq(path, reads)
+    assert cli.main(count_argv(str(path), tmp_path / "t.npz", 32)) == 0
+    with np.load(tmp_path / "t.npz") as z:
+        nu = int(z["n_unique"])
+        got = ((z["keys_hi"][:nu].astype(np.uint64) << np.uint64(32))
+               | z["keys_lo"][:nu].astype(np.uint64))
+        got_counts = z["counts"][:nu].astype(np.int64)
+        kmers = int(z["kmers"])
+    hi, lo, counts = (t.numpy() for t in ref.count_reads(reads, 32, "cpu"))
+    assert not hi.any()
+    want = lo.view(np.uint64)
+    assert np.array_equal(got, want)
+    assert np.array_equal(got_counts, counts)
+    assert kmers == int(counts.sum())
+    # the motifs' keys: the flag word (twice per strand, at least), and
+    # keys past bit 63 in the thousands
+    assert counts[np.searchsorted(want, np.uint64(FLAG_WORD))] >= 3
+    assert want[np.searchsorted(want, np.uint64(FLAG_WORD))] == FLAG_WORD
+    assert (want >= np.uint64(FLAG_WORD)).sum() > 1000
