@@ -208,6 +208,12 @@ KERNEL_INFO = {
                       "none (kmers_tpu/parallel/count.py:574, jnp)"),
     "reduce_runs": ("kmers_tpu_torch/kernels/csrc/merge.cu",
                     "none (kmers_tpu/parallel/count.py:424, jnp around K4)"),
+    "merge_sorted_weighted": ("kmers_tpu_torch/kernels/csrc/merge.cu",
+                              "none (kmers_tpu/parallel/count.py:347-373, "
+                              "the k = 32 re-count)"),
+    "reduce_runs_all_valid": ("kmers_tpu_torch/kernels/csrc/merge.cu",
+                              "none (kmers_tpu/parallel/count.py:347-373, "
+                              "the k = 32 re-count)"),
 }
 # the sharded runs of phase 7: (partition, shards, route_capacity); the
 # minimizer partition's budget counts super-k-mers, ~12 per 150 bp read
@@ -450,6 +456,7 @@ def phase_kernels(stats: dict, seed: int) -> None:
         bound_ms=bound_ms(nbytes(*args3, *kmerge.merge_sorted(*args3))),
         library_ms=None)
     kernels_reduce(stats, args3)
+    kernels_sorted_merge(stats, seed)
 
     planes, keep = compress_inputs(g)
     kept = int(keep.sum())
@@ -568,6 +575,75 @@ def kernels_reduce(stats: dict, args3) -> None:
         f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
         f"{r['bound_ms']:.4f}); wide {r['wide']['ms']:.4f} ms (plain "
         f"{r['wide']['plain_ms']:.4f}, bound {r['wide']['bound_ms']:.4f})")
+
+
+def kernels_sorted_merge(stats: dict, seed: int) -> None:
+    """The k = 32 consolidation's variants against their plain versions,
+    timed, at the count cell's shapes: a 2^24-slot table of 8.4M live keys
+    over the whole 64-bit range and 16 run-length batch tables of 2^20
+    lanes (46 % valid, 3/4 of those the table's keys).  K3 WEIGHTED_B on
+    the last merge (the table's live prefix with the merged batches' live
+    lanes), K13 ALL_VALID on its output.  Bounds: each lane read once
+    and written once."""
+    import torch
+
+    from kmers_tpu_torch.core import u64
+    from kmers_tpu_torch.kernels import merge as kmerge
+    from kmers_tpu_torch.parallel import count as count_ops
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(seed + 32)
+    words = lambda m: torch.randint(-2**63, 2**63 - 1, (m,), device=dev,
+                                    generator=g, dtype=torch.int64)
+    keys = u64.to_unsigned_order(torch.unique(u64.to_unsigned_order(
+        words(8_400_000))))
+    nu, cap = keys.shape[0], SIZES["merge"]
+    live = u64.split_word(keys) + (torch.randint(
+        1, 100, (nu,), device=dev, generator=g, dtype=torch.int32),)
+    pending = []
+    for _ in range(16):
+        w = words(1 << 20)
+        dup = torch.rand(1 << 20, device=dev, generator=g) < 0.75
+        w = torch.where(dup, keys[torch.randint(0, nu, (1 << 20,), device=dev,
+                                                generator=g)], w)
+        valid = torch.rand(1 << 20, device=dev, generator=g) < 0.46
+        pending.append(count_ops.count_words(w, valid, max_k=32,
+                                             compact=False))
+    del keys
+    lists = list(count_ops._live_lists(pending))
+    tree = lists[0]
+    for x in lists[1:]:
+        tree = kmerge.merge_sorted_weighted(*tree, *x)
+    del lists, pending
+    merge = lambda: kmerge.merge_sorted_weighted(*live, *tree)
+    merged = merge()
+    reduce = lambda: kmerge.reduce_runs(merged[:2], merged[2], cap,
+                                        all_valid=True)
+    got = reduce()
+    want = kmerge.reduce_runs_plain(merged[:2], merged[2], cap, all_valid=True)
+    err = max_abs_err(got[0] + (got[1],), want[0] + (want[1],))
+    if got[2] != want[2]:
+        err = max(err, 1)
+    res = stats["kernels"]
+    res["merge_sorted_weighted"] = dict(
+        max_abs_err=max_abs_err(merged, kmerge.merge_sorted_weighted_plain(
+            *live, *tree)),
+        ms=time_ms(merge), plain_ms=time_ms(
+            lambda: kmerge.merge_sorted_weighted_plain(*live, *tree)),
+        bound_ms=bound_ms(nbytes(*live, *tree, *merged)), library_ms=None,
+        lanes=merged[0].shape[0])
+    res["reduce_runs_all_valid"] = dict(
+        max_abs_err=err, ms=time_ms(reduce), plain_ms=time_ms(
+            lambda: kmerge.reduce_runs_plain(merged[:2], merged[2], cap,
+                                             all_valid=True)),
+        bound_ms=bound_ms(nbytes(*merged, *got[0], got[1])), library_ms=None,
+        lanes=merged[0].shape[0], n_unique=got[2])
+    m, r = res["merge_sorted_weighted"], res["reduce_runs_all_valid"]
+    say(f"phase 2 k = 32 merge: {nu} table keys + {tree[0].shape[0]} batch "
+        f"lanes -> {got[2]} keys; K3 weighted {m['ms']:.4f} ms (plain "
+        f"{m['plain_ms']:.4f}, bound {m['bound_ms']:.4f}); K13 all-valid "
+        f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+        f"{r['bound_ms']:.4f})")
 
 
 def compress_inputs(g, n4: int = 0) -> tuple:
@@ -869,12 +945,14 @@ def table_keys(table):
 
 # k -> (kernels the packed count must launch, the --ascii-ingest run's
 # window kernel): unit batches at k <= 31 and 33 <= k <= 63; k = 32 and
-# k = 64 count through the run-length tables, torch sorts only
+# k = 64 count through the run-length tables, torch sorts, and k = 32
+# merges them (K4, K3 weighted, K13 all-valid)
 E2E_KERNELS = {31: (("pack_canonical_keys_packed", "merge_sorted",
                      "reduce_runs"), "pack_canonical_keys"),
                63: (("merge_sorted_wide", "reduce_runs"),
                     "pack_canonical_keys_wide"),
-               32: ((), None), 64: ((), None)}
+               32: (("compress_flagged", "merge_sorted_weighted",
+                     "reduce_runs_all_valid"), None), 64: ((), None)}
 
 
 def phase_end_to_end(stats: dict, seed: int, workdir: str, k: int,
@@ -1451,13 +1529,18 @@ def phase_count_forms(stats: dict, workdir: str) -> None:
     at capacity 2^24; each table must be phase 3's / phase 4's, and each
     run must launch its kernel (K11 for the compact form, K10 narrow and
     wide for the run-length forms, at 64-lane segments and through the
-    merge rounds)."""
+    merge rounds).  K10's per-segment tables are not key-sorted as a
+    whole, so at k = 31 they fold by merge_many's re-count."""
     import torch
 
     from kmers_tpu_torch import kernels
     from kmers_tpu_torch.io import fastx
     from kmers_tpu_torch.parallel import count as count_ops
     from kmers_tpu_torch.parallel import pipeline, stream
+
+    def recount(table, pending, cap, max_k=None):
+        return stream._bound_table(count_ops.merge_many(
+            [table] + list(pending), max_k=max_k), cap)
 
     fastq = os.path.join(workdir, "ecoli_1m.fastq")
     capacity, batch, length = 1 << 24, 4096, 256
@@ -1487,7 +1570,8 @@ def phase_count_forms(stats: dict, workdir: str) -> None:
                  if wide else pipeline.count_reads)
         empty = (count_ops.empty_table_wide if wide
                  else count_ops.empty_table)(capacity, DEVICE)
-        merge = stream._merge_bounded_wide if wide else stream._merge_bounded
+        merge = (stream._merge_bounded_wide if wide else
+                 stream._merge_bounded if compact else recount)
         rows = fastx.prefetch(fastx.read_kmer_batches(fastq, k=k, batch=batch,
                                                       length=length))
         sync()

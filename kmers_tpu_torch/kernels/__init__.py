@@ -19,6 +19,8 @@ KERNELS = ("pack_canonical_keys_packed", "pack_canonical_keys",
            "pack_canonical_hash_wide", "minimizer_kernel",
            "segment_count_keys", "segment_count_keys_wide", "radix_sort_u64",
            "search_counts", "reduce_runs",
+           # consolidation's variants for keys that fill the word
+           "merge_sorted_weighted", "reduce_runs_all_valid",
            # the stage variants, each counted under its own name
            "pack_canonical_keys_packed[pack]", "pack_canonical_keys[pack]",
            "minimizer_kernel[hash]")

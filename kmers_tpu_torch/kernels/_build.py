@@ -51,16 +51,19 @@ _SIGNATURES = {
     "kt_merge_sorted": ([_P, _P, _P, _LL, _P, _P, _LL, _P, _P, _P, _P, _P],
                         _I),
     "kt_merge_sorted_idx": ([_P, _P, _P, _LL, _P, _P, _LL] + [_P] * 6, _I),
+    "kt_merge_sorted_weighted": ([_P, _P, _P, _LL, _P, _P, _P, _LL]
+                                 + [_P] * 5, _I),
     "kt_merge_sorted_wide": ([_P] * 5 + [_LL] + [_P] * 4 + [_LL]
                              + [_P] * 7, _I),
     "kt_compress_flagged": ([_P] * 4 + [_LL] + [_P] * 5, _I),
     "kt_compress_scratch_lanes": ([_LL], _LL),
     "kt_reduce_scratch_lanes": ([_LL, _I], _LL),
-    "kt_reduce_runs_tiles": ([_I] + [_P] * 5 + [_LL, _P, _P], _I),
-    "kt_reduce_runs": ([_I] + [_P] * 5 + [_LL, _P, _LL, _LL] + [_P] * 6,
-                       _I),
+    "kt_reduce_runs_tiles": ([_I, _I] + [_P] * 5 + [_LL, _P, _P], _I),
+    "kt_reduce_runs": ([_I, _I] + [_P] * 5 + [_LL, _P, _LL, _LL]
+                       + [_P] * 6, _I),
     "kt_merge_tile": ([], _I),
     "kt_merge_tile_wide": ([], _I),
+    "kt_merge_tile_weighted": ([], _I),
     "kt_segment_count": ([_P] * 4 + [_LL, _LL, _LL, _I] + [_P] * 7, _I),
     "kt_radix_tile": ([], _I),
     "kt_radix_scratch_bytes": ([_LL], _LL),

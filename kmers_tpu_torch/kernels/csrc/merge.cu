@@ -29,6 +29,16 @@
 // before B on equal keys.  B weight = (plane 0 >> 31) ^ 1.  The output
 // is exactly nA + nB lanes long (no pad lanes).
 //
+// K3 WEIGHTED_B, a compile-time flag of the same template (NK = 2): B
+// carries its own weight plane, and no lane of either side is dead, so
+// the unsigned (hi, lo) order holds for every key, bit 63 included
+// (k = 32 keys fill the word).  Consolidation merges key-sorted count
+// tables with it (count.merge_sorted_tables), pairwise.  It replaces no
+// TPU kernel: the JAX package's k = 32 path re-counts by weight
+// (kmers_tpu/parallel/count.py:347-373).  Bound by bytes: 12 B in and 12
+// B out a lane.  Shared memory holds six planes, so its tile is 1536
+// lanes (36 KB).
+//
 // K4 compaction, one pass.  The TPU kernel carried a partial row between
 // sequential grid steps and took its block offsets from a cumsum outside
 // the kernel (merge.py:303-305).  Blocks here run in any order; a count
@@ -79,6 +89,11 @@
 // folded flag; flagged lanes come last and weigh nothing); a valid lane
 // starts a run where its key differs from the lane before it (lane 0:
 // always; a tile's first lane reads its halo from global memory).
+// ALL_VALID, a compile-time flag of both passes: every lane is valid and
+// no bit is tested, for keys that fill the word (k = 32: the weighted
+// K3's merges of live lanes).  It too replaces no TPU kernel (the JAX
+// package's k = 32 re-count, kmers_tpu/parallel/count.py:347-373), and
+// is bound by bytes alike: 12 B in (twice) and 12 B out a lane at NK = 2.
 
 #include "common.cuh"
 
@@ -92,14 +107,16 @@
 #define CF_VALUE (CF_AGGREGATE - 1)
 #define CF_FULL 0xFFFFFFFFu
 
-// Lanes per thread of the NK-plane merge; tile = MERGE_THREADS * ITEMS.
-template <int NK> struct MergeItems;
+// Lanes per thread of the NK-plane merge, WB: B carries its weight
+// plane; tile = MERGE_THREADS * ITEMS.
+template <int NK, bool WB = false> struct MergeItems;
 template <> struct MergeItems<2> { static constexpr int value = 8; };
 template <> struct MergeItems<4> { static constexpr int value = 4; };
+template <> struct MergeItems<2, true> { static constexpr int value = 6; };
 
-template <int NK>
+template <int NK, bool WB = false>
 __host__ __device__ constexpr int kt_tile() {
-  return MERGE_THREADS * MergeItems<NK>::value;
+  return MERGE_THREADS * MergeItems<NK, WB>::value;
 }
 
 // A key of NK uint32 planes as NK/2 64-bit words, most significant first.
@@ -144,7 +161,7 @@ __device__ __forceinline__ long long kt_merge_path(KeyA ka, long long na,
   return lo;
 }
 
-template <int NK>
+template <int NK, bool WB>
 __global__ void kt_merge_partition_kernel(InPlanes<NK> a, long long na,
                                           InPlanes<NK> b, long long nb,
                                           long long* part,
@@ -152,27 +169,28 @@ __global__ void kt_merge_partition_kernel(InPlanes<NK> a, long long na,
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n_parts) return;
   const long long n = na + nb;
-  long long d = t * kt_tile<NK>();
+  long long d = t * kt_tile<NK, WB>();
   if (d > n) d = n;
   part[t] = kt_merge_path([&](long long i) { return kt_key<NK>(a.p, i); }, na,
                           [&](long long i) { return kt_key<NK>(b.p, i); }, nb,
                           d);
 }
 
-// a: NK key planes + the weight; b: NK key planes; o: NK planes + weight.
-// WITH_IDX also writes o_idx, the source-index plane of merge.py:402-405:
-// an A lane's rank in A, or 0x80000000 | a B lane's rank in B.  It is
-// staged in sb[0], free after the second barrier, so shared memory stays
-// at 2 NK + 1 planes (a fourth plane in sa would reach the 48 KB limit).
-template <int NK, bool WITH_IDX>
+// a: NK key planes + the weight; b: NK key planes (WB: + the weight); o:
+// NK planes + weight.  WITH_IDX also writes o_idx, the source-index plane
+// of merge.py:402-405: an A lane's rank in A, or 0x80000000 | a B lane's
+// rank in B.  It is staged in sb[0], free after the second barrier, so
+// shared memory stays at 2 NK + 1 planes (a fourth plane in sa would
+// reach the 48 KB limit).
+template <int NK, bool WITH_IDX, bool WB>
 __global__ void __launch_bounds__(MERGE_THREADS)
-kt_merge_kernel(InPlanes<NK + 1> a, long long na, InPlanes<NK> b,
+kt_merge_kernel(InPlanes<NK + 1> a, long long na, InPlanes<NK + WB> b,
                 long long nb, const long long* __restrict__ part,
                 OutPlanes<NK + 1> o, u32* __restrict__ o_idx) {
-  constexpr int ITEMS = MergeItems<NK>::value;
-  constexpr int TILE = kt_tile<NK>();
+  constexpr int ITEMS = MergeItems<NK, WB>::value;
+  constexpr int TILE = kt_tile<NK, WB>();
   __shared__ u32 sa[NK + 1][TILE];
-  __shared__ u32 sb[NK][TILE];
+  __shared__ u32 sb[NK + WB][TILE];
   const long long n = na + nb;
   const long long d0 = (long long)blockIdx.x * TILE;
   const long long d1 = d0 + TILE < n ? d0 + TILE : n;
@@ -185,7 +203,7 @@ kt_merge_kernel(InPlanes<NK + 1> a, long long na, InPlanes<NK> b,
   }
   for (int i = threadIdx.x; i < wb; i += MERGE_THREADS) {
 #pragma unroll
-    for (int j = 0; j < NK; ++j) sb[j][i] = b.p[j][b0 + i];
+    for (int j = 0; j < NK + WB; ++j) sb[j][i] = b.p[j][b0 + i];
   }
   __syncthreads();
 
@@ -212,7 +230,8 @@ kt_merge_kernel(InPlanes<NK + 1> a, long long na, InPlanes<NK> b,
     } else {
 #pragma unroll
       for (int j = 0; j < NK; ++j) r[j][it] = sb[j][bi];
-      r[NK][it] = (sb[0][bi] >> 31) ^ 1u;
+      if constexpr (WB) r[NK][it] = sb[NK][bi];
+      else r[NK][it] = (sb[0][bi] >> 31) ^ 1u;
       if (WITH_IDX) r_idx[it] = 0x80000000u | (u32)(b0 + bi);
       ++bi;
     }
@@ -235,21 +254,25 @@ kt_merge_kernel(InPlanes<NK + 1> a, long long na, InPlanes<NK> b,
 
 // part: scratch of ceil((nA + nB) / tile) + 1 int64 lanes; o_idx: the
 // source-index plane when WITH_IDX, else unused.
-template <int NK, bool WITH_IDX>
-static int kt_merge_launch(InPlanes<NK + 1> a, long long na, InPlanes<NK> b,
-                           long long nb, long long* part, OutPlanes<NK + 1> o,
-                           u32* o_idx, cudaStream_t st) {
+template <int NK, bool WITH_IDX, bool WB = false>
+static int kt_merge_launch(InPlanes<NK + 1> a, long long na,
+                           InPlanes<NK + WB> b, long long nb, long long* part,
+                           OutPlanes<NK + 1> o, u32* o_idx, cudaStream_t st) {
+  constexpr int TILE = kt_tile<NK, WB>();
   const long long n = na + nb;
   if (n == 0) return 0;
-  const long long tiles = (n + kt_tile<NK>() - 1) / kt_tile<NK>();
+  const long long tiles = (n + TILE - 1) / TILE;
   const long long n_parts = tiles + 1;
-  InPlanes<NK> ak;
-  for (int j = 0; j < NK; ++j) ak.p[j] = a.p[j];
-  kt_merge_partition_kernel<NK><<<(unsigned)((n_parts + 255) / 256), 256, 0,
-                                  st>>>(ak, na, b, nb, part, n_parts);
+  InPlanes<NK> ak, bk;
+  for (int j = 0; j < NK; ++j) {
+    ak.p[j] = a.p[j];
+    bk.p[j] = b.p[j];
+  }
+  kt_merge_partition_kernel<NK, WB><<<(unsigned)((n_parts + 255) / 256), 256,
+                                      0, st>>>(ak, na, bk, nb, part, n_parts);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  kt_merge_kernel<NK, WITH_IDX><<<(unsigned)tiles, MERGE_THREADS, 0, st>>>(
+  kt_merge_kernel<NK, WITH_IDX, WB><<<(unsigned)tiles, MERGE_THREADS, 0, st>>>(
       a, na, b, nb, part, o, o_idx);
   return (int)cudaGetLastError();
 }
@@ -448,7 +471,7 @@ static RunScratch rr_scratch(void* base, long long tiles) {
 // K13, first pass: block = one tile, taken from the ticket.  Thread t
 // reads lanes it * RR_THREADS + t (coalesced; lane i - 1 of the start
 // test comes from the line its neighbour just loaded).
-template <int NK>
+template <int NK, bool ALL_VALID>
 __global__ void __launch_bounds__(RR_THREADS)
 kt_run_tiles_kernel(InPlanes<NK + 1> m, long long n, long long tiles,
                     RunScratch sc) {
@@ -468,7 +491,7 @@ kt_run_tiles_kernel(InPlanes<NK + 1> m, long long n, long long tiles,
     const int l = it * RR_THREADS + tid;
     const long long i = t0 + l;
     w[it] = 0;
-    if (i < n && !(m.p[0][i] >> 31)) {
+    if (i < n && (ALL_VALID || !(m.p[0][i] >> 31))) {
       w[it] = m.p[NK][i];
       bool differs = i == 0;
 #pragma unroll
@@ -517,7 +540,7 @@ kt_run_tiles_kernel(InPlanes<NK + 1> m, long long n, long long tiles,
 // K13, second pass: block = tile blockIdx.x.  Thread t owns lanes
 // ITEMS t .. ITEMS t + ITEMS - 1 of the staged tile, so that the block
 // scans run in lane order.
-template <int NK>
+template <int NK, bool ALL_VALID>
 __global__ void __launch_bounds__(RR_THREADS)
 kt_reduce_runs_kernel(InPlanes<NK + 1> m, long long n, long long tiles,
                       RunScratch sc, OutPlanes<NK + 1> o) {
@@ -571,7 +594,7 @@ kt_reduce_runs_kernel(InPlanes<NK + 1> m, long long n, long long tiles,
         differs |= key != prev[j];
         prev[j] = key;
       }
-      if (!(prev[0] >> 31)) {
+      if (ALL_VALID || !(prev[0] >> 31)) {
         wt = s[NK][rr_pad(i)];
         if (differs) {
           mask |= 1u << it;
@@ -632,28 +655,38 @@ kt_reduce_runs_kernel(InPlanes<NK + 1> m, long long n, long long tiles,
 }
 
 template <int NK>
-static int kt_run_tiles_launch(InPlanes<NK + 1> m, long long n,
-                               void* scratch, cudaStream_t st) {
+static int kt_run_tiles_launch(bool all_valid, InPlanes<NK + 1> m,
+                               long long n, void* scratch, cudaStream_t st) {
   const long long tiles = rr_tiles<NK>(n);
   cudaError_t err = cudaMemsetAsync(scratch, 0,
                                     (size_t)(3 * tiles + 2) * sizeof(u64), st);
   if (err != cudaSuccess || n == 0) return (int)err;
-  kt_run_tiles_kernel<NK><<<(unsigned)tiles, RR_THREADS, 0, st>>>(
-      m, n, tiles, rr_scratch(scratch, tiles));
+  const RunScratch sc = rr_scratch(scratch, tiles);
+  if (all_valid)
+    kt_run_tiles_kernel<NK, true><<<(unsigned)tiles, RR_THREADS, 0, st>>>(
+        m, n, tiles, sc);
+  else
+    kt_run_tiles_kernel<NK, false><<<(unsigned)tiles, RR_THREADS, 0, st>>>(
+        m, n, tiles, sc);
   return (int)cudaGetLastError();
 }
 
 template <int NK>
-static int kt_reduce_runs_launch(InPlanes<NK + 1> m, long long n,
-                                 void* scratch, long long n_unique,
-                                 long long out_lanes, OutPlanes<NK + 1> o,
-                                 cudaStream_t st) {
+static int kt_reduce_runs_launch(bool all_valid, InPlanes<NK + 1> m,
+                                 long long n, void* scratch,
+                                 long long n_unique, long long out_lanes,
+                                 OutPlanes<NK + 1> o, cudaStream_t st) {
   if (n_unique < 0 || n_unique > n || out_lanes < n_unique)
     return (int)cudaErrorInvalidValue;
   const long long tiles = rr_tiles<NK>(n);
   if (n_unique > 0) {
-    kt_reduce_runs_kernel<NK><<<(unsigned)tiles, RR_THREADS, 0, st>>>(
-        m, n, tiles, rr_scratch(scratch, tiles), o);
+    const RunScratch sc = rr_scratch(scratch, tiles);
+    if (all_valid)
+      kt_reduce_runs_kernel<NK, true><<<(unsigned)tiles, RR_THREADS, 0, st>>>(
+          m, n, tiles, sc, o);
+    else
+      kt_reduce_runs_kernel<NK, false><<<(unsigned)tiles, RR_THREADS, 0,
+                                         st>>>(m, n, tiles, sc, o);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -673,6 +706,8 @@ static long long kt_compress_tiles(long long n) {
 KT_EXPORT int kt_merge_tile() { return kt_tile<2>(); }
 
 KT_EXPORT int kt_merge_tile_wide() { return kt_tile<4>(); }
+
+KT_EXPORT int kt_merge_tile_weighted() { return kt_tile<2, true>(); }
 
 // int64 lanes of kt_compress_flagged's scratch for n lanes: the ticket,
 // then one status word a tile.
@@ -706,6 +741,21 @@ KT_EXPORT int kt_merge_sorted_idx(const void* a_hi, const void* a_lo,
   OutPlanes<3> o = {{(u32*)o_hi, (u32*)o_lo, (u32*)o_w}};
   return kt_merge_launch<2, true>(a, na, b, nb, (long long*)part, o,
                                   (u32*)o_idx, (cudaStream_t)stream);
+}
+
+// K3 WEIGHTED_B: B's weight plane b_w; no dead lane on either side; part:
+// ceil((nA + nB) / kt_merge_tile_weighted()) + 1 int64 lanes.
+KT_EXPORT int kt_merge_sorted_weighted(const void* a_hi, const void* a_lo,
+                                       const void* a_w, long long na,
+                                       const void* b_hi, const void* b_lo,
+                                       const void* b_w, long long nb,
+                                       void* part, void* o_hi, void* o_lo,
+                                       void* o_w, void* stream) {
+  InPlanes<3> a = {{(const u32*)a_hi, (const u32*)a_lo, (const u32*)a_w}};
+  InPlanes<3> b = {{(const u32*)b_hi, (const u32*)b_lo, (const u32*)b_w}};
+  OutPlanes<3> o = {{(u32*)o_hi, (u32*)o_lo, (u32*)o_w}};
+  return kt_merge_launch<2, false, true>(a, na, b, nb, (long long*)part, o,
+                                         nullptr, (cudaStream_t)stream);
 }
 
 // K6: key planes most significant first; part: ceil((nA + nB) /
@@ -754,46 +804,48 @@ KT_EXPORT long long kt_reduce_scratch_lanes(long long n, int nk) {
 
 // K13, first pass over n merged lanes: planes p0 .. p(nk-1) the keys,
 // most significant first, p(nk) the weights (the pointers past it are
-// unused); scratch: kt_reduce_scratch_lanes(n, nk) words, zeroed here on
-// the stream (the pass's one memset).  Its last word then holds n_unique.
-KT_EXPORT int kt_reduce_runs_tiles(int nk, const void* p0, const void* p1,
-                                   const void* p2, const void* p3,
-                                   const void* p4, long long n, void* scratch,
-                                   void* stream) {
+// unused); all_valid: ALL_VALID's instantiation (no flag bit); scratch:
+// kt_reduce_scratch_lanes(n, nk) words, zeroed here on the stream (the
+// pass's one memset).  Its last word then holds n_unique.
+KT_EXPORT int kt_reduce_runs_tiles(int nk, int all_valid, const void* p0,
+                                   const void* p1, const void* p2,
+                                   const void* p3, const void* p4,
+                                   long long n, void* scratch, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (nk == 2) {
     InPlanes<3> m = {{(const u32*)p0, (const u32*)p1, (const u32*)p2}};
-    return kt_run_tiles_launch<2>(m, n, scratch, st);
+    return kt_run_tiles_launch<2>(all_valid, m, n, scratch, st);
   }
   if (nk == 4) {
     InPlanes<5> m = {{(const u32*)p0, (const u32*)p1, (const u32*)p2,
                       (const u32*)p3, (const u32*)p4}};
-    return kt_run_tiles_launch<4>(m, n, scratch, st);
+    return kt_run_tiles_launch<4>(all_valid, m, n, scratch, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// K13, second pass: the same planes and scratch, n_unique read from it;
-// o0 .. o(nk) receive the keys and the counts, out_lanes >= n_unique
+// K13, second pass: the same planes, flag and scratch, n_unique read from
+// it; o0 .. o(nk) receive the keys and the counts, out_lanes >= n_unique
 // lanes each, zero past n_unique.
-KT_EXPORT int kt_reduce_runs(int nk, const void* p0, const void* p1,
-                             const void* p2, const void* p3, const void* p4,
-                             long long n, void* scratch, long long n_unique,
-                             long long out_lanes, void* o0, void* o1,
-                             void* o2, void* o3, void* o4, void* stream) {
+KT_EXPORT int kt_reduce_runs(int nk, int all_valid, const void* p0,
+                             const void* p1, const void* p2, const void* p3,
+                             const void* p4, long long n, void* scratch,
+                             long long n_unique, long long out_lanes,
+                             void* o0, void* o1, void* o2, void* o3, void* o4,
+                             void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (nk == 2) {
     InPlanes<3> m = {{(const u32*)p0, (const u32*)p1, (const u32*)p2}};
     OutPlanes<3> o = {{(u32*)o0, (u32*)o1, (u32*)o2}};
-    return kt_reduce_runs_launch<2>(m, n, scratch, n_unique, out_lanes, o,
-                                    st);
+    return kt_reduce_runs_launch<2>(all_valid, m, n, scratch, n_unique,
+                                    out_lanes, o, st);
   }
   if (nk == 4) {
     InPlanes<5> m = {{(const u32*)p0, (const u32*)p1, (const u32*)p2,
                       (const u32*)p3, (const u32*)p4}};
     OutPlanes<5> o = {{(u32*)o0, (u32*)o1, (u32*)o2, (u32*)o3, (u32*)o4}};
-    return kt_reduce_runs_launch<4>(m, n, scratch, n_unique, out_lanes, o,
-                                    st);
+    return kt_reduce_runs_launch<4>(all_valid, m, n, scratch, n_unique,
+                                    out_lanes, o, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -8,6 +8,14 @@ is the glue around K4 in ``kmers_tpu/parallel/count.py``'s table merge.
 All planes are 1-D int32 tensors holding uint32 bit patterns.  CUDA
 source: ``csrc/merge.cu`` (K3 and K6 are one kernel template, the index
 plane a compile-time flag of it; K13 one template on the key planes).
+
+Two variants serve keys that fill the word (k = 32), for the merge of
+key-sorted count tables (``parallel.count.merge_sorted_tables``):
+``merge_sorted_weighted`` (K3 whose B side carries its weights) and
+``reduce_runs(..., all_valid=True)`` (K13 with no flag bit).  Neither
+replaces a TPU kernel: the JAX package's k = 32 path re-counts by weight
+(``kmers_tpu/parallel/count.py:347-373``).  Both are bound by bytes, 12 B
+in and 12 B out a lane.
 """
 
 from __future__ import annotations
@@ -26,17 +34,22 @@ def _check_planes(n: int, **planes) -> None:
         check_tensor(t, name, torch.int32, (n,))
 
 
+def _merge_plain(a_hi, a_lo, a_w, b_hi, b_lo, b_w):
+    """One stable sort of A then B by the unsigned key, so equal keys keep
+    A before B and their order within each side: the merged (hi, lo, w)
+    and the sort's order."""
+    hi, lo = torch.cat([a_hi, b_hi]), torch.cat([a_lo, b_lo])
+    order = torch.sort(u64.to_unsigned_order(u64.join_planes(hi, lo)),
+                       stable=True).indices
+    return (hi[order], lo[order], torch.cat([a_w, b_w])[order]), order
+
+
 def merge_sorted_plain(a_hi, a_lo, a_w, b_hi, b_lo, with_idx: bool = False):
-    """Plain version of K3: one stable sort of A then B by the unsigned
-    key, so equal keys keep A before B and their order within each side.
+    """Plain version of K3: _merge_plain with B's weights from its flag.
     with_idx: the sort's order is the source index, a B lane's rank in B
     carrying bit 31."""
-    key = u64.to_unsigned_order(u64.join_planes(torch.cat([a_hi, b_hi]),
-                                                torch.cat([a_lo, b_lo])))
-    b_w = ((b_hi >> 31) & 1) ^ 1
-    order = torch.sort(key, stable=True).indices
-    out = (torch.cat([a_hi, b_hi])[order], torch.cat([a_lo, b_lo])[order],
-           torch.cat([a_w, b_w])[order])
+    out, order = _merge_plain(a_hi, a_lo, a_w, b_hi, b_lo,
+                              ((b_hi >> 31) & 1) ^ 1)
     if not with_idx:
         return out
     na = a_hi.shape[0]
@@ -79,6 +92,39 @@ def merge_sorted(a_hi, a_lo, a_w, b_hi, b_lo, with_idx: bool = False):
             torch.cuda.current_stream().cuda_stream)
     _build.check(code, name)
     count_launch(name)
+    return tuple(out)
+
+
+def merge_sorted_weighted_plain(a_hi, a_lo, a_w, b_hi, b_lo, b_w):
+    """Plain version of merge_sorted_weighted: _merge_plain."""
+    return _merge_plain(a_hi, a_lo, a_w, b_hi, b_lo, b_w)[0]
+
+
+def merge_sorted_weighted(a_hi, a_lo, a_w, b_hi, b_lo, b_w):
+    """K3 with B's own weights (its WEIGHTED_B instantiation): merge two
+    key-sorted weighted lists (hi, lo, w) into one of nA + nB lanes.
+    Every lane of both is live: the order is unsigned over (hi, lo) for
+    any key, bit 63 included, and no weight comes from a flag.  Equal
+    keys keep A before B.  Launches count as "merge_sorted_weighted"."""
+    na, nb = a_hi.shape[0], b_hi.shape[0]
+    _check_planes(na, a_hi=a_hi, a_lo=a_lo, a_w=a_w)
+    _check_planes(nb, b_hi=b_hi, b_lo=b_lo, b_w=b_w)
+    if not on_cuda(a_hi, a_lo, a_w, b_hi, b_lo, b_w):
+        return merge_sorted_weighted_plain(a_hi, a_lo, a_w, b_hi, b_lo, b_w)
+    n = na + nb
+    device = a_hi.device
+    out = [torch.empty(n, dtype=torch.int32, device=device) for _ in range(3)]
+    with torch.cuda.device(device):
+        lib = _build.lib()
+        tile = lib.kt_merge_tile_weighted()
+        part = torch.empty(-(-n // tile) + 1, dtype=torch.int64, device=device)
+        code = lib.kt_merge_sorted_weighted(
+            a_hi.data_ptr(), a_lo.data_ptr(), a_w.data_ptr(), na,
+            b_hi.data_ptr(), b_lo.data_ptr(), b_w.data_ptr(), nb,
+            part.data_ptr(), *(o.data_ptr() for o in out),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "merge_sorted_weighted")
+    count_launch("merge_sorted_weighted")
     return tuple(out)
 
 
@@ -159,12 +205,13 @@ def compress_flagged(hi, lo, pay, keep):
     return tuple(out)
 
 
-def reduce_runs_plain(keys, w, capacity: int):
-    """Plain version of K13: run starts of the valid lanes, an int64
-    cumsum of their weights as uint32, the starts' keys and exclusive
-    prefix sums compacted, each count the difference of consecutive
-    prefixes (the last closed by the total), mod 2^32."""
-    valid = keys[0] >= 0
+def reduce_runs_plain(keys, w, capacity: int, all_valid: bool = False):
+    """Plain version of K13: run starts of the valid lanes (all_valid:
+    every lane), an int64 cumsum of their weights as uint32, the starts'
+    keys and exclusive prefix sums compacted, each count the difference
+    of consecutive prefixes (the last closed by the total), mod 2^32."""
+    valid = torch.ones_like(w, dtype=torch.bool) if all_valid else (
+        keys[0] >= 0)
     # lane 0's "previous key" differs from it in plane 0
     first = [keys[0][:1] ^ 1] + [p[:1] for p in keys[1:]]
     starts = valid & functools.reduce(operator.or_, (
@@ -186,13 +233,16 @@ def reduce_runs_plain(keys, w, capacity: int):
     return tuple(put(p[at]) for p in keys), put(counts), n_unique
 
 
-def reduce_runs(keys, w, capacity: int):
+def reduce_runs(keys, w, capacity: int, all_valid: bool = False):
     """K13: the compact table of merged lanes (K3's or K6's output: keys
     ascending as unsigned words over the planes, most significant first,
     flagged lanes last).  Each run of equal valid keys (bit 31 of plane 0
     clear) becomes one slot: its key and its weight sum mod 2^32 (exact
-    below 2^31).  Returns (key planes, counts, n_unique): int32 planes of
-    max(capacity, n_unique) lanes, zero past n_unique.
+    below 2^31).  all_valid (its ALL_VALID instantiation, launches
+    counted as "reduce_runs_all_valid"): every lane is valid and no bit
+    is tested, for keys that fill the word.  Returns (key planes, counts,
+    n_unique): int32 planes of max(capacity, n_unique) lanes, zero past
+    n_unique.
 
     On the card two kernels over the lanes' tiles and one host read,
     n_unique, in between (it sizes the outputs); no lane-wide temporary
@@ -204,7 +254,7 @@ def reduce_runs(keys, w, capacity: int):
     n = w.shape[0]
     _check_planes(n, **{f"k{i}": p for i, p in enumerate(keys)}, w=w)
     if not on_cuda(*keys, w):
-        return reduce_runs_plain(keys, w, capacity)
+        return reduce_runs_plain(keys, w, capacity, all_valid)
     device = w.device
     planes = [p.data_ptr() for p in keys + (w,)]
     planes += [None] * (5 - len(planes))
@@ -213,15 +263,17 @@ def reduce_runs(keys, w, capacity: int):
         stream = torch.cuda.current_stream().cuda_stream
         scratch = torch.empty(lib.kt_reduce_scratch_lanes(n, nk),
                               dtype=torch.int64, device=device)
-        code = lib.kt_reduce_runs_tiles(nk, *planes, n, scratch.data_ptr(),
-                                        stream)
+        code = lib.kt_reduce_runs_tiles(nk, int(all_valid), *planes, n,
+                                        scratch.data_ptr(), stream)
         _build.check(code, "reduce_runs")
         n_unique = int(scratch[-1])
         out = [torch.empty(max(capacity, n_unique), dtype=torch.int32,
                            device=device) for _ in range(nk + 1)]
         outs = [o.data_ptr() for o in out] + [None] * (4 - nk)
-        code = lib.kt_reduce_runs(nk, *planes, n, scratch.data_ptr(),
-                                  n_unique, out[0].shape[0], *outs, stream)
-    _build.check(code, "reduce_runs")
-    count_launch("reduce_runs")
+        code = lib.kt_reduce_runs(nk, int(all_valid), *planes, n,
+                                  scratch.data_ptr(), n_unique,
+                                  out[0].shape[0], *outs, stream)
+    name = "reduce_runs_all_valid" if all_valid else "reduce_runs"
+    _build.check(code, name)
+    count_launch(name)
     return tuple(out[:nk]), out[nk], n_unique

@@ -14,15 +14,19 @@ Two ways to build a table:
   streaming     ``unit_table(_wide)`` per batch (k <= 31, 33 <= k <= 63),
                 and ``merge_table_with_sorted_units(_wide)`` (the merge
                 kernel K3 / K6 over the table's live prefix, then the
-                run-reduce kernel K13) per consolidation;
+                run-reduce kernel K13) per consolidation; key-sorted
+                count tables of two planes (k = 32's run-length batch
+                tables, compact shard tables) ``merge_sorted_tables``
+                (K4, pairwise weighted K3 merges, K13);
   sort-based    ``count_words(_wide)`` (compact, or run-length: sorted
                 with duplicates, counts at run starts), ``count_weighted
                 (_wide)`` and ``merge_many(_wide)``, a re-count by weight
                 of any mix of table forms.  k = 32 and k = 64 fill every
-                key bit, so they count only this way.  The key-only sort
-                of the compact form at k <= 31 is the radix sort K11; the
-                run-length form at k <= 31 / k <= 63 is the segment-count
-                kernel K10 (a per-segment layout, exact after a merge).
+                key bit, so their batch tables are built only this way.
+                The key-only sort of the compact form at k <= 31 is the
+                radix sort K11; the run-length form at k <= 31 / k <= 63
+                is the segment-count kernel K10 (a per-segment layout,
+                exact after a re-count).
 
 Sorts are stable and unsigned: bit 63 of each int64 word is flipped
 around every sort, compare and search (``u64.to_unsigned_order``), since
@@ -213,6 +217,76 @@ def merge_table_with_sorted_units_wide(table: CountTableWide,
     last.  K6 and K13 (kmers_tpu/parallel/count.py:840-888)."""
     return _merge_with_sorted_units(table, tuple(s_keys),
                                     kmerge.merge_sorted_wide)
+
+
+def _live_lists(pending):
+    """The live lanes (counts > 0) of key-sorted count tables as key-sorted
+    (hi, lo, counts) lists, one a table, or one a row of a stacked
+    [D, cap] shard table; tables and rows with none give none.  Each
+    table's live lanes go to the front by K4; a 1-D table has n_unique of
+    them, and the rows of the stacked ones take one host read together.
+    A generator: a table is compacted when the merge asks for it."""
+    stacked = [t for t in pending if t.counts.dim() > 1]
+    rows = iter(torch.cat([(t.counts > 0).sum(-1) for t in stacked]).tolist()
+                if stacked else ())
+    for t in pending:
+        lens = ([next(rows) for _ in range(t.counts.shape[0])]
+                if t.counts.dim() > 1 else [t.n_unique])
+        if not sum(lens):
+            continue
+        counts = t.counts.reshape(-1)
+        planes = kmerge.compress_flagged(
+            *(p.reshape(-1) for p in t.keys), counts,
+            (counts > 0).view(torch.uint8))
+        at = 0
+        for n in lens:
+            if n:
+                yield tuple(p[at:at + n] for p in planes)
+            at += n
+
+
+def merge_sorted_tables(table: CountTable, pending,
+                        capacity: int) -> CountTable:
+    """Consolidate count tables of two key planes that are key-sorted over
+    their live lanes (compact tables, globally sorted run-length tables,
+    stacked [D, cap] compact shard tables) into the compact table, by
+    merging, with no sort: each pending table's live lanes (_live_lists),
+    merged pairwise by K3 with B's weights (merge_sorted_weighted) as a
+    binary counter adds, so that at most one list a level waits; the
+    result merged with the table's live prefix; K13 with every lane valid
+    (reduce_runs(all_valid=True)) over the merged lanes.  Keys may fill
+    the word (k = 32).  Returns the compact table of max(capacity,
+    n_unique) slots, which stream._bound_table bounds: the keys, counts
+    mod 2^32, n_unique, eviction and dropped mass of merge_many's
+    re-count of the same tables.  The table's live prefix is taken as it
+    is: a count past 2^31 stays live, as in the JAX package's uint32
+    tables, where merge_many's counts > 0 test drops it."""
+    with profiling.span("kmers.consolidate.sorted_merge"):
+        nu = table.n_unique
+        lanes = nu
+        stack = []                            # (level, list), levels falling
+        for x in _live_lists(pending):
+            lanes += x[0].shape[0]
+            level = 0
+            while stack and stack[-1][0] == level:
+                x = kmerge.merge_sorted_weighted(*stack.pop()[1], *x)
+                level += 1
+            stack.append((level, x))
+        while len(stack) > 1:
+            x = stack.pop()[1]
+            level, y = stack.pop()
+            stack.append((level, kmerge.merge_sorted_weighted(*y, *x)))
+        live = tuple(p[:nu] for p in table.keys) + (table.counts[:nu],)
+        if stack and nu:
+            live = kmerge.merge_sorted_weighted(*live, *stack.pop()[1])
+        elif stack:
+            live = stack.pop()[1]
+        profiling.add("kmers.consolidate.sorted_merges")
+        profiling.add("kmers.consolidate.sorted_reduced", int(live[2].is_cuda))
+        profiling.add("kmers.consolidate.sorted_lanes", lanes)
+        keys, counts, n_unique = kmerge.reduce_runs(live[:2], live[2],
+                                                    capacity, all_valid=True)
+        return CountTable(*keys, counts, n_unique)
 
 
 def lookup(table: CountTable, queries: torch.Tensor) -> torch.Tensor:

@@ -12,9 +12,12 @@ over a mesh, 1 <= k <= 64 (the minimizer partition k <= 31).
                 any read of the table).  Unit tables: one sort of the
                 pending keys (two stable torch.sorts for 128-bit keys),
                 then count.merge_table_with_sorted_units(_wide) (merge and
-                compress kernels).  Run-length tables: _merge_bounded(_wide),
-                count.merge_many's weighted re-count.  Then _bound_table's
-                eviction if the merged table outgrew capacity.
+                run-reduce kernels).  Count tables, key-sorted over their
+                live lanes (k = 32's run-length batches, gathered compact
+                shard tables): _merge_bounded, count.merge_sorted_tables's
+                merges; 128-bit ones _merge_bounded_wide, count.merge_many_
+                wide's weighted re-count.  Then _bound_table's eviction if
+                the merged table outgrew capacity.
 
 Eviction policy (the JAX package's): past capacity the LOWEST-count
 entries go first, ties evict the numerically largest keys, and the
@@ -94,10 +97,17 @@ def _merge_bounded_streaming_wide(table, pending, capacity: int):
 
 
 def _merge_bounded(table, pending, capacity: int, max_k=None):
-    """merge_many of the table and the pending tables of any form, then
-    _bound_table (kmers_tpu/parallel/stream.py:60-64)."""
+    """The table and the pending tables in one, then _bound_table
+    (kmers_tpu/parallel/stream.py:60-64).  Count tables must be key-sorted
+    over their live lanes (compact, or globally sorted run-length: not
+    K10's per-segment layout) and merge by count.merge_sorted_tables; a
+    mix with unit tables takes merge_many's re-count."""
     with profiling.span("kmers.consolidate.merge"):
-        merged = count_ops.merge_many([table] + list(pending), max_k=max_k)
+        if any(isinstance(t, count_ops.UnitTable) for t in pending):
+            merged = count_ops.merge_many([table] + list(pending),
+                                          max_k=max_k)
+        else:
+            merged = count_ops.merge_sorted_tables(table, pending, capacity)
     return _bound_table(merged, capacity)
 
 

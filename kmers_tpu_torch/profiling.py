@@ -99,9 +99,16 @@ SPANS = {
     "kmers.consolidate.sort": "the pending unit keys' sort (_sort_units, "
                               "_sort_units_wide)",
     "kmers.consolidate.merge": "merge_table_with_sorted_units(_wide) (K3 / "
-                               "K6, K13), or merge_many(_wide)",
+                               "K6, K13), merge_sorted_tables, or "
+                               "merge_many(_wide)",
+    "kmers.consolidate.sorted_merge": "count.merge_sorted_tables: the "
+                                      "pending tables' live lanes (K4), "
+                                      "their weighted K3 merges, the merge "
+                                      "with the table's live prefix and "
+                                      "K13 (all lanes valid)",
     "kmers.consolidate.recount": "count._merge_many, from any caller "
-                                 "(merge_many(_wide), _merge_bounded): the "
+                                 "(merge_many(_wide), _merge_bounded_wide, "
+                                 "_merge_bounded of unit tables): the "
                                  "tables' int64 join, their concatenation "
                                  "and the weighted re-count",
     "kmers.consolidate.recount.sort": "the stable sort by (invalid, key) "
@@ -148,6 +155,13 @@ COUNTERS = {
                                   "(kmers.consolidate.recount)",
     "kmers.consolidate.recount_lanes": "lanes those re-counts took in: the "
                                        "summed lanes of every table merged",
+    "kmers.consolidate.sorted_merges": "count.merge_sorted_tables calls "
+                                       "(kmers.consolidate.sorted_merge)",
+    "kmers.consolidate.sorted_reduced": "of those, calls whose merges and "
+                                        "reduction ran on the card",
+    "kmers.consolidate.sorted_lanes": "lanes those calls' last merge took "
+                                      "in: the table's live prefix and the "
+                                      "pending tables' live lanes",
 }
 
 _OFF = contextlib.nullcontext()

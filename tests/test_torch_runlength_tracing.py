@@ -1,6 +1,8 @@
 """The run-length path at k = 32 and k = 64 (full-word keys, no spare
-flag bit): its spans and counters (``kmers.emit.runs``,
-``kmers.consolidate.recount`` / ``.recount.sort``,
+flag bit): its spans and counters (``kmers.emit.runs``; at k = 32 the
+merge of sorted tables, ``kmers.consolidate.sorted_merge`` and
+``kmers.consolidate.sorted_merges`` / ``.sorted_lanes``; at k = 64 the
+re-count, ``kmers.consolidate.recount`` / ``.recount.sort`` and
 ``kmers.consolidate.recounts`` / ``.recount_lanes``), off with no
 profiler, and the CLI's k = 32 table against the benchmark's plain
 reference on reads that hold the word (0x80000000, 0), keys with bit 63
@@ -62,9 +64,10 @@ def count_argv(path, out, k):
 @pytest.mark.parametrize("k", FULL_WORD_KS)
 def test_cli_count_spans(tmp_path, fastq, k):
     """Under a CPU profiler: one kmers.emit.runs inside each
-    kmers.emit.count, and one kmers.consolidate.recount holding one
-    .recount.sort inside each kmers.consolidate; one re-count a
-    consolidation on the counters."""
+    kmers.emit.count; inside each kmers.consolidate, at k = 32 one
+    kmers.consolidate.sorted_merge and no re-count, at k = 64 one
+    kmers.consolidate.recount holding one .recount.sort; one merge or
+    re-count a consolidation on the counters."""
     n_batches = sum(1 for _ in fastx.read_packed_batches(
         fastq, k=k, batch=BATCH, length=LENGTH))
     assert n_batches >= 4
@@ -82,15 +85,22 @@ def test_cli_count_spans(tmp_path, fastq, k):
     assert len(named(spans, "kmers.emit.runs")) == n_batches
     consolidations = named(spans, "kmers.consolidate")
     assert len(consolidations) == (n_batches + 1) // 2
+    merge, other, counter = (
+        ("kmers.consolidate.sorted_merge", "kmers.consolidate.recount",
+         "kmers.consolidate.sorted_merges") if k == 32 else
+        ("kmers.consolidate.recount", "kmers.consolidate.sorted_merge",
+         "kmers.consolidate.recounts"))
     for c in consolidations:
-        (recount,) = within(spans, "kmers.consolidate.recount", c)
-        assert len(within(spans, "kmers.consolidate.recount.sort",
-                          recount)) == 1
-        assert len(within(spans, "kmers.consolidate.recount.sort", c)) == 1
-    assert len(named(spans, "kmers.consolidate.recount")) == \
+        (inner,) = within(spans, merge, c)
+        if k == 64:
+            assert len(within(spans, "kmers.consolidate.recount.sort",
+                              inner)) == 1
+            assert len(within(spans, "kmers.consolidate.recount.sort",
+                              c)) == 1
+    assert len(named(spans, merge)) == len(consolidations)
+    assert not named(spans, other)
+    assert after.get(counter, 0) - before.get(counter, 0) == \
         len(consolidations)
-    assert after.get("kmers.consolidate.recounts", 0) - before.get(
-        "kmers.consolidate.recounts", 0) == len(consolidations)
 
 
 def packed_batches(k, rows_per_batch, seed=3):
@@ -112,26 +122,34 @@ def packed_batches(k, rows_per_batch, seed=3):
 ])
 def test_recount_lanes_are_the_merged_capacities(monkeypatch, k,
                                                  rows_per_batch):
-    """At every consolidation the counters move by one re-count and by the
-    summed capacities of the table and the pending tables it merged (the
-    padding to merge_every included)."""
+    """At every consolidation the counters move by one merge (k = 32) or
+    re-count (k = 64), and by the lanes it took in: at k = 32 the table's
+    live prefix and the pending tables' live lanes (runs), at k = 64 the
+    summed capacities of the table and the pending tables (the padding
+    to merge_every included)."""
     seen = []
     consolidate = stream.StreamingCounter._consolidate
+    names = (("kmers.consolidate.sorted_merges",
+              "kmers.consolidate.sorted_lanes") if k == 32 else
+             ("kmers.consolidate.recounts",
+              "kmers.consolidate.recount_lanes"))
 
     def recorded(self):
         if not self._pending:
             return consolidate(self)
-        caps = [t.capacity for t in self._pending]
-        if len(set(caps)) == 1:
-            caps += [caps[0]] * (self.merge_every - len(caps))
-        want = self.table.capacity + sum(caps)
+        if k == 32:
+            want = self.table.n_unique + sum(
+                int((t.counts > 0).sum()) for t in self._pending)
+        else:
+            caps = [t.capacity for t in self._pending]
+            if len(set(caps)) == 1:
+                caps += [caps[0]] * (self.merge_every - len(caps))
+            want = self.table.capacity + sum(caps)
         before = profiling.counters()
         consolidate(self)
         after = profiling.counters()
-        seen.append(tuple(
-            after.get(n, 0) - before.get(n, 0)
-            for n in ("kmers.consolidate.recounts",
-                      "kmers.consolidate.recount_lanes")) + (want,))
+        seen.append(tuple(after.get(n, 0) - before.get(n, 0)
+                          for n in names) + (want,))
 
     monkeypatch.setattr(stream.StreamingCounter, "_consolidate", recorded)
     sc = stream.StreamingCounter(k, 1 << 13, merge_every=3, device="cpu")
