@@ -652,14 +652,16 @@ def _merge_many(tables, max_k):
     device = flat[0].counts.device if hasattr(flat[0], "counts") else (
         flat[0].keys[0].device)
     with profiling.span("kmers.consolidate.recount"):
-        parts = [_table_parts(t, device) for t in flat]
-        n_words = len(parts[0][0])
-        words = tuple(torch.cat([p[0][i] for p in parts])
-                      for i in range(n_words))
+        with profiling.span("kmers.consolidate.recount.join"):
+            parts = [_table_parts(t, device) for t in flat]
+            n_words = len(parts[0][0])
+            words = tuple(torch.cat([p[0][i] for p in parts])
+                          for i in range(n_words))
+            valid = torch.cat([p[2] for p in parts])
+            weights = torch.cat([p[1] for p in parts])
         profiling.add("kmers.consolidate.recounts")
         profiling.add("kmers.consolidate.recount_lanes", words[0].numel())
-        return _count_weighted(words, torch.cat([p[2] for p in parts]),
-                               torch.cat([p[1] for p in parts]), max_k)
+        return _count_weighted(words, valid, weights, max_k)
 
 
 def merge_many(tables, max_k=None) -> CountTable:

@@ -111,6 +111,11 @@ SPANS = {
                                  "_merge_bounded of unit tables): the "
                                  "tables' int64 join, their concatenation "
                                  "and the weighted re-count",
+    "kmers.consolidate.recount.join": "count._merge_many's first step: "
+                                      "each table's int32 planes joined "
+                                      "into int64 words (_table_parts) and "
+                                      "the words, validity and weights "
+                                      "concatenated, before the re-count",
     "kmers.consolidate.recount.sort": "the stable sort by (invalid, key) "
                                       "inside count._count_weighted",
     "kmers.consolidate.bound": "_bound_table: the slice, or eviction past "

@@ -6,7 +6,7 @@ re-count, ``kmers.consolidate.recount`` / ``.recount.sort`` and
 ``kmers.consolidate.recounts`` / ``.recount_lanes``), off with no
 profiler, and the CLI's k = 32 table against the benchmark's plain
 reference on reads that hold the word (0x80000000, 0), keys with bit 63
-set and Ns."""
+set and Ns, and the k = 64 table the same way, bit 127 set."""
 
 import json
 
@@ -66,8 +66,9 @@ def test_cli_count_spans(tmp_path, fastq, k):
     """Under a CPU profiler: one kmers.emit.runs inside each
     kmers.emit.count; inside each kmers.consolidate, at k = 32 one
     kmers.consolidate.sorted_merge and no re-count, at k = 64 one
-    kmers.consolidate.recount holding one .recount.sort; one merge or
-    re-count a consolidation on the counters."""
+    kmers.consolidate.recount holding one .recount.join and, after it,
+    one .recount.sort; one merge or re-count a consolidation on the
+    counters."""
     n_batches = sum(1 for _ in fastx.read_packed_batches(
         fastq, k=k, batch=BATCH, length=LENGTH))
     assert n_batches >= 4
@@ -93,10 +94,14 @@ def test_cli_count_spans(tmp_path, fastq, k):
     for c in consolidations:
         (inner,) = within(spans, merge, c)
         if k == 64:
-            assert len(within(spans, "kmers.consolidate.recount.sort",
-                              inner)) == 1
+            (sort,) = within(spans, "kmers.consolidate.recount.sort", inner)
             assert len(within(spans, "kmers.consolidate.recount.sort",
                               c)) == 1
+            # the planes' join and concatenation come first, then the sort
+            (join,) = within(spans, "kmers.consolidate.recount.join", inner)
+            assert join[2] <= sort[1]
+    assert len(named(spans, "kmers.consolidate.recount.join")) == (
+        len(consolidations) if k == 64 else 0)
     assert len(named(spans, merge)) == len(consolidations)
     assert not named(spans, other)
     assert after.get(counter, 0) - before.get(counter, 0) == \
@@ -184,16 +189,16 @@ def test_off_records_nothing(monkeypatch, tmp_path, fastq, k):
 FLAG_WORD = 1 << 63
 
 
-def seeded_reads(seed=32, n=400, read_len=100):
-    """Random reads with 1 % N, and rows that hold A^31 G, its reverse
-    complement C T^31, A^31 G before an N, and C^31 T (canonical as its
-    reverse complement A G^31, bit 63 set too)."""
+def seeded_reads(seed=32, n=400, read_len=100, k=32):
+    """Random reads with 1 % N, and rows that hold A^(k-1) G, its reverse
+    complement C T^(k-1), A^(k-1) G before an N, and C^(k-1) T (canonical
+    as its reverse complement A G^(k-1), the key's top bit set too)."""
     rng = np.random.default_rng(seed)
     reads = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4,
                                                           (n, read_len))]
     reads[rng.random(reads.shape) < 0.01] = ord("N")
-    for i, motif in enumerate([b"A" * 31 + b"G", b"C" + b"T" * 31,
-                               b"C" * 31 + b"T", b"A" * 31 + b"GN"]):
+    a, c, t = (b * (k - 1) for b in (b"A", b"C", b"T"))
+    for i, motif in enumerate([a + b"G", b"C" + t, c + b"T", a + b"GN"]):
         at = 7 * i
         reads[i, at:at + len(motif)] = np.frombuffer(motif, np.uint8)
     return reads
@@ -231,3 +236,39 @@ def test_cli_k32_table_is_the_references(tmp_path):
     assert counts[np.searchsorted(want, np.uint64(FLAG_WORD))] >= 3
     assert want[np.searchsorted(want, np.uint64(FLAG_WORD))] == FLAG_WORD
     assert (want >= np.uint64(FLAG_WORD)).sum() > 1000
+
+
+#: A^63 G's forward word as a 128-bit key: (1 << 63, 0) as (hi, lo), bit
+#: 127 alone; smaller than its reverse complement C T^63's, so canonical
+TOP_WORD = 1 << 63
+
+
+def test_cli_k64_table_is_the_references(tmp_path):
+    """The CLI's k = 64 count (packed ingest, wide run-length batch
+    tables, weighted re-counts mid-stream and at save) equals the
+    benchmark's reference key for key and count for count, over keys that
+    fill both words."""
+    reads = seeded_reads(k=64)
+    path = tmp_path / "reads.fq"
+    write_fastq(path, reads)
+    assert cli.main(count_argv(str(path), tmp_path / "t.npz", 64)) == 0
+    with np.load(tmp_path / "t.npz") as z:
+        nu = int(z["n_unique"])
+        join = lambda a, b: ((z[a][:nu].astype(np.uint64) << np.uint64(32))
+                             | z[b][:nu].astype(np.uint64))
+        got_hi = join("keys_hi_hi", "keys_hi_lo")
+        got_lo = join("keys_lo_hi", "keys_lo_lo")
+        got_counts = z["counts"][:nu].astype(np.int64)
+        kmers = int(z["kmers"])
+    hi, lo, counts = (t.numpy() for t in ref.count_reads(reads, 64, "cpu"))
+    want_hi, want_lo = hi.view(np.uint64), lo.view(np.uint64)
+    assert nu == len(counts) > 5_000
+    assert np.array_equal(got_hi, want_hi)
+    assert np.array_equal(got_lo, want_lo)
+    assert np.array_equal(got_counts, counts)
+    assert kmers == int(counts.sum())
+    # bit 127 alone (A^63 G: twice per strand, at least), and keys with
+    # bit 127 set in the thousands
+    top = np.flatnonzero((want_hi == np.uint64(TOP_WORD)) & (want_lo == 0))
+    assert len(top) == 1 and counts[top[0]] >= 3
+    assert (want_hi >= np.uint64(TOP_WORD)).sum() > 1000
